@@ -8,18 +8,30 @@ Phases, each of which fails the run (non-zero exit) on error:
      and CUDA versions;
   2. build: every CUDA kernel from tac_torch/csrc (one nvcc per source, all
      started together), with nvcc's register / shared-memory / spill lines;
-  3. kernel checks at the flagship's shapes: each kernel equals its plain
-     PyTorch version exactly, on the card, including a constructed row
-     where a fused multiply-add would change the water-fill's decision;
+  3. kernel checks at the flagship's shapes: K1 (water-fill) and K2 (word
+     scatter) equal their plain PyTorch versions exactly, on the card,
+     including a constructed row where a fused multiply-add would change
+     the water-fill's decision;
   4. main path: PRESETS["stereo44-128"] (fast) on 16 clips x 15 s stereo —
      the batched device encode (timed with CUDA events), then
      encode_array → bytes → decode_array per clip; the launch counters are
      zeroed just before and read just after, and every kernel must have
      launched; the card's SNR on clip 0 (first 2 s) must be within 0.1 dB
      of the port's own CPU run; then one encode under torch.profiler
-     (device time by kernel, idle share).
-It prints "profile", "main_path" and "kernels" JSON lines, and last
-{"ok": true, "device": {...}}. Without CUDA, or without the tac_torch
+     (device time by kernel, idle share);
+  5. VBR kernel checks at the VBR run's shapes: K3 (reservoir chain, 32
+     lanes x 647 frames) and K4 (Huffman decode walk, 20 704 rows, once per
+     table set present) equal their plain versions exactly, plus small
+     cases (one and three sets, forced ties, per-frame n_lines, a resumed
+     chain, 50 joint bands, the FMA row; sizes outside [2, 8], escapes,
+     walks past the payload, a stalling table);
+  6. VBR path: PRESETS["vbr-huffman"] (fast) on the same clips — batched
+     device encode and decode (CUDA events), then encode_array → bytes →
+     decode_array per clip, counters zeroed before and read after (K2, K3
+     and K4 must have launched), SNRs, card vs CPU on clip 0, the share of
+     frames by tableId, one encode under torch.profiler.
+It prints "profile", "main_path", "profile_vbr", "vbr_path" and "kernels"
+JSON lines, and last {"ok": true, "device": {...}}. Without CUDA, or without the tac_torch
 package beside it, it exits non-zero and prints no result.
 """
 
@@ -78,6 +90,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def timed(fn):
+    """(fn(), its device time in ms): one call between two CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def profile_device(fn, top: int = 15) -> dict:
     """Device time by kernel over one call of fn (torch.profiler, CUPTI),
     the host wall of that call, and the share of the wall the card was
@@ -134,6 +159,22 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def bound(nbytes: float, nops: float):
+    """The least time the card could take, in ms, and what sets it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def worst_err(got, want) -> int:
+    """Largest |got - want| over a pair of tensors or of tensor tuples."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    return max((int((g.long() - w.long()).abs().max().item()) if g.numel() else 0)
+               for g, w in zip(got, want))
+
+
 def main() -> int:
     import torch
 
@@ -147,10 +188,13 @@ def main() -> int:
               "run from the repository root", file=sys.stderr)
         return 2
     from tac_torch import _build, api, bitalloc, codec
+    from tac_torch import huffman as hf
     from tac_torch.config import PRESETS
     from tac_torch.ops import alloc as k1
     from tac_torch.ops import bitpack
+    from tac_torch.ops import huffdec as k4
     from tac_torch.ops import pack as k2
+    from tac_torch.ops import vbr_scan as k3
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -222,7 +266,7 @@ def main() -> int:
     check(fma_fused != fma_want,
           "the FMA row does not separate fused from unfused arithmetic")
     with torch.no_grad():
-        max_err, flag_alloc = k1_case("flagship smr", smr_q, nl, budgets)
+        k1_err, flag_alloc = k1_case("flagship smr", smr_q, nl, budgets)
         for case in (("random", bitalloc.snap_smr(rand_smr), nl, rand_bud),
                      ("ties/extremes", ties, nl,
                       torch.full((4,), c.budget, dtype=torch.int32, device=dev)),
@@ -231,7 +275,7 @@ def main() -> int:
                                  device=dev)),
                      ("per-row n_lines", bitalloc.snap_smr(rand_smr[:2048]),
                       per_row_nl, rand_bud[:2048].contiguous())):
-            max_err = max(max_err, k1_case(*case)[0])
+            k1_err = max(k1_err, k1_case(*case)[0])
         fma = k1.water_fill_rows(torch.tensor([fma_s], device=dev),
                                  torch.tensor(fma_nl, dtype=torch.int32, device=dev),
                                  torch.tensor([fma_bud], dtype=torch.int32, device=dev))
@@ -288,10 +332,6 @@ def main() -> int:
         1 + 2 * int(np.ceil(np.log2(smr_q.shape[1]))))
     k2_bytes = c0.numel() * 12 + rows * w32 * 4
     k2_ops = c0.numel() * 4             # two bounds checks + two ORs a field
-
-    def bound(nbytes, nops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
 
     del c0, c1, word0, fields
 
@@ -351,23 +391,293 @@ def main() -> int:
         "snr_db": snrs, "clip0_2s_snr_card": gpu_snr, "clip0_2s_snr_cpu": cpu_snr,
         "stream_bytes": sum(len(s) for s in streams), "card": card}}))
 
+
+    # ---- 5. the VBR slice: kernel inputs at the VBR run's own shapes
+    cfg_v = PRESETS["vbr-huffman"]
+    cv = codec.make_consts(cfg_v, dev)
+    lanes, n_fr = 2 * CLIPS, rows // (2 * CLIPS)
+    w32_v = -(-codec.payload_capacity_bits(cfg_v, cv) // 32)
+    base_v, cap_v = cv.budget, cfg_v.reservoir_factor * cv.budget
+    n_sets_v = cfg_v.huffman_sets
+
+    with torch.no_grad():
+        lines_v, smr_fl, bh_fl = codec._vbr_phase1_lanes(
+            frames.reshape(lanes, n_fr, -1), cfg_v, cv)
+        smr_fl = bitalloc.snap_smr(smr_fl).float().contiguous()
+    res0_v = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    print(f"vbr: {lanes} lanes x {n_fr} frames x {smr_fl.shape[2]} bands, "
+          f"{bh_fl.shape[3]} cost columns, base {base_v}, cap {cap_v}, "
+          f"W32 = {w32_v}")
+
+    def k3_case(name, s_, bh_, nl_, r0_, base, cap_):
+        got = k3.vbr_reservoir_scan(s_, bh_, nl_, r0_, base=base, cap=cap_)
+        want, plain_ms = timed(lambda: k3.vbr_reservoir_scan_plain(
+            s_, bh_, nl_, r0_, base=base, cap=cap_))
+        err = worst_err(got, want)
+        print(f"  K3 {name}: {tuple(s_.shape)} x {bh_.shape[3]} columns "
+              f"max_abs_err {err}")
+        check(err == 0, f"K3 {name} differs from its plain version")
+        return err, got, plain_ms
+
+    def k3_inputs(f_, l_, nl_np, sets):
+        nb_ = len(nl_np)
+        s_ = bitalloc.snap_smr(torch.as_tensor(
+            rng.normal(8, 22, (f_, l_, nb_)), dtype=torch.float32, device=dev))
+        m_ = rng.integers(2, 9, (f_, l_, nb_, 7 * sets))
+        bh_ = (m_ * nl_np[None, None, :, None] * rng.uniform(0.7, 1.3, m_.shape))
+        return s_.contiguous(), bh_.astype(np.int32)
+
+    def dev_i32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev) \
+            .contiguous()
+
+    nl_np = nl.cpu().numpy()
+    raw_cost = (np.arange(2, 9)[None, :] * nl_np[:, None]).astype(np.int32)
+    with torch.no_grad():
+        k3_err, k3_out, k3_plain_ms = k3_case("vbr run", smr_fl, bh_fl, nl, res0_v,
+                                              base_v, cap_v)
+        zeros4 = torch.zeros(4, dtype=torch.int32, device=dev)
+        for sets in (1, 3):
+            s_, bh_ = k3_inputs(8, 4, nl_np, sets)
+            k3_err = max(k3_err, k3_case(f"{sets} set(s)", s_, dev_i32(bh_), nl,
+                                         zeros4, 700, 2800)[0])
+        s_, bh_ = k3_inputs(8, 4, nl_np, 2)
+        bh_[0, 0, :, :7] = raw_cost                       # set 1 == raw
+        bh_[1, 1, :, 7:] = bh_[1, 1, :, :7]               # set 2 == set 1
+        bh_[2, 2, :, 7:] = np.minimum(bh_[2, 2, :, :7], raw_cost) - 1
+        err, got, _ = k3_case("forced ties", s_, dev_i32(bh_), nl, zeros4, 700, 2800)
+        tid_t = got[1].cpu().numpy()
+        check(tid_t[0, 0] != 1 and tid_t[1, 1] != 2 and tid_t[2, 2] == 2,
+              "K3 tie order raw <= set 1 <= set 2")
+        nl_short = 2 * codec.bands.lines_per_band(cfg_v.sample_rate, 512)
+        nl_pf = np.where(rng.random((8, 4, 1)) < 0.4, nl_short, nl_np)
+        k3_err = max(k3_err, err, k3_case("per-frame n_lines", s_, dev_i32(bh_),
+                                          dev_i32(nl_pf), zeros4, 650, 2600)[0])
+        r0 = dev_i32(rng.integers(1, 2800, 4))
+        err, full, _ = k3_case("res0 != 0", s_, dev_i32(bh_), nl, r0, 700, 2800)
+        bh_d = dev_i32(bh_)
+        head = k3.vbr_reservoir_scan(s_[:3].contiguous(), bh_d[:3].contiguous(), nl,
+                                     r0, base=700, cap=2800)
+        tail = k3.vbr_reservoir_scan(s_[3:].contiguous(), bh_d[3:].contiguous(), nl,
+                                     head[3][-1].contiguous(), base=700, cap=2800)
+        split = worst_err(full, [torch.cat([h_, t_]) for h_, t_ in zip(head, tail)])
+        print(f"  K3 split chain (3 + 5 frames) vs whole: max_abs_err {split}")
+        check(split == 0, "K3 split chain differs from the whole chain")
+        s2_, bh2_ = k3_inputs(8, 4, np.concatenate([nl_np, nl_np]), 2)
+        k3_err = max(k3_err, err, split, k3_case(
+            "joint 50-band", s2_, dev_i32(bh2_), nl2, zeros4, 1400, 5600)[0])
+        err, got, _ = k3_case(
+            "FMA row", torch.tensor([[fma_s]], device=dev),
+            torch.zeros((1, 1, 2, 7), dtype=torch.int32, device=dev),
+            dev_i32(fma_nl), zeros4[:1].contiguous(), fma_bud, 4 * fma_bud)
+        print(f"  K3 FMA row: kernel {got[0].tolist()[0][0]} unfused {fma_want}")
+        check(got[0].tolist()[0][0] == fma_want, "K3 FMA row")
+        k3_err = max(k3_err, err)
+
+        k3_ms = cuda_ms(lambda: k3.vbr_reservoir_scan(
+            smr_fl, bh_fl, nl, res0_v, base=base_v, cap=cap_v), 5, warmup=1)
+        smr_c0, bh_c0 = smr_fl[:, :2].contiguous(), bh_fl[:, :2].contiguous()
+        k3_clip_ms = cuda_ms(lambda: k3.vbr_reservoir_scan(
+            smr_c0, bh_c0, nl, res0_v[:2].contiguous(), base=base_v, cap=cap_v),
+            5, warmup=1)
+        # K2 at the VBR rows' shape: the first chunk's 2+2B+2H fields
+        ch = codec.ENC_CHUNK
+        code_v = codec.quantize_given_alloc(
+            lines_v[:ch], k3_out[0].transpose(0, 1).reshape(rows, -1)[:ch],
+            cfg_v, cv)
+        c0v, c1v, w0v = bitpack.field_words(*codec.payload_fields_vbr(
+            code_v, k3_out[1].transpose(0, 1).reshape(rows)[:ch], cfg_v, cv))[:3]
+        k2v_err = worst_err(k2.scatter_words_rows(c0v, c1v, w0v, w32=w32_v),
+                            k2.scatter_words_rows_plain(c0v, c1v, w0v, w32=w32_v))
+        print(f"  K2 vbr chunk fields: {tuple(c0v.shape)} -> W32 {w32_v} "
+              f"max_abs_err {k2v_err}")
+        check(k2v_err == 0, "K2 differs from its plain version at VBR shapes")
+        k2_vbr_chunk_ms = cuda_ms(lambda: k2.scatter_words_rows(
+            c0v, c1v, w0v, w32=w32_v), 50)
+        del lines_v, code_v, c0v, c1v, w0v
+    k3_bytes = (smr_fl.numel() + bh_fl.numel() + k3_out[0].numel()
+                + 3 * lanes * n_fr + nl.numel() + lanes) * 4
+    # least arithmetic for this run's data: the heap greedy of K1's bound per
+    # granted bit, plus one add per band and priced total (raw and each set)
+    k3_ops = (int(k3_out[0].sum().item())
+              * (1 + 2 * int(np.ceil(np.log2(smr_fl.shape[2]))))
+              + smr_fl.numel() * (1 + n_sets_v))
+    del smr_c0, bh_c0
+
+    # ---- K4 at the VBR run's shapes: the words the VBR encode produces
+    def encode_v():
+        return codec.encode_clip_vbr_packed(xd, cfg_v, dev)
+
+    with torch.no_grad():
+        words_v, nbits_v = encode_v()               # also warms the path
+        check(tuple(words_v.shape) == (CLIPS, 2, n_fr, w32_v),
+              f"VBR encode words shape {tuple(words_v.shape)}")
+        check(int(nbits_v.max().item()) <= 32 * w32_v, "VBR row over capacity")
+        wf = words_v.reshape(-1, w32_v).contiguous()
+        _, tid_v, _, _, m_line_v, mant_start_v = codec._vbr_head(wf, cfg_v, cv)
+        tid_share = (torch.bincount(tid_v.long(), minlength=4).float()
+                     / tid_v.numel()).tolist()
+        print(f"  tid shares (raw, set 1, set 2, set 3): "
+              f"{[round(v, 4) for v in tid_share]}")
+        check(sum(tid_share[1:]) > 0, "no Huffman-coded frame in the VBR run")
+        sets_present = [sid for sid in range(1, len(cv.huff) + 1)
+                        if tid_share[sid] > 0]
+
+        def k4_case(name, w_, ms_, ml_, hc):
+            got = k4.huffman_decode_rows(w_, ms_, ml_, hc)
+            want, plain_ms = timed(lambda: k4.huffman_decode_rows_plain(
+                w_, ms_, ml_, hc))
+            err = worst_err(got, want)
+            print(f"  K4 {name}: words {tuple(w_.shape)} lines {ml_.shape[1]} "
+                  f"max_abs_err {err}")
+            check(err == 0, f"K4 {name} differs from its plain version")
+            return err, got, plain_ms
+
+        k4_err, k4_ms, k4_plain_ms, k4_clip_ms = 0, 0.0, 0.0, 0.0
+        rows_clip = 2 * n_fr
+        for sid in sets_present:
+            hc = cv.huff[sid - 1]
+            err, _, pms = k4_case(f"vbr run, set {sid}", wf, mant_start_v,
+                                  m_line_v, hc)
+            k4_err, k4_plain_ms = max(k4_err, err), k4_plain_ms + pms
+            k4_ms += cuda_ms(lambda: k4.huffman_decode_rows(
+                wf, mant_start_v, m_line_v, hc), 10)
+            wc, sc, mc = (t[:rows_clip].contiguous()
+                          for t in (wf, mant_start_v, m_line_v))
+            k4_clip_ms += cuda_ms(lambda: k4.huffman_decode_rows(wc, sc, mc, hc), 10)
+
+        def random_rows(k_, h_, w_):
+            words = rng.integers(0, 1 << 32, (k_, w_), dtype=np.uint64) \
+                .astype(np.uint32).view(np.int32)
+            return (dev_i32(words), dev_i32(rng.integers(0, 200, k_)),
+                    dev_i32(rng.choice([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 16],
+                                       (k_, h_))))
+
+        for sid in range(1, len(cv.huff) + 1):       # sizes outside [2, 8], escapes
+            k4_err = max(k4_err, k4_case(f"random bits, set {sid}",
+                                         *random_rows(1000, 200, w32_v),
+                                         cv.huff[sid - 1])[0])
+        k4_err = max(k4_err, k4_case("walks past the payload",
+                                     *random_rows(100, 128, 6), cv.huff[0])[0])
+        # a table whose m = 2 codes leave a peek uncovered: length 0, a stall
+        tab = dict(hf.host_tables(1))
+        pak = np.array(tab["dec_pak"])
+        lmax = pak.shape[1].bit_length() - 1
+        pak[0, -(1 << (lmax - int((pak[0] >> 16).max()))):] = 0
+        tab["dec_pak"] = pak
+        hc_stall = hf.device_tables(tab, dev)
+        peek = int(np.flatnonzero(pak[0] == 0)[0])
+        w_, ms_, ml_ = random_rows(64, 128, 64)
+        w_[0] = int(np.uint32(peek << (32 - lmax)).view(np.int32))
+        ml_[0] = 2
+        ms_[0] = 0
+        err, got, _ = k4_case("stalling table", w_, ms_, ml_, hc_stall)
+        check(bool((got[0] == 0).all()), "K4 stall row moved")
+        k4_err = max(k4_err, err)
+    k4_bytes = len(sets_present) * 4 * (wf.numel() + 2 * m_line_v.numel()
+                                        + mant_start_v.numel()
+                                        + cv.huff[0].canon.numel()
+                                        + cv.huff[0].perm.numel())
+    # per line: the window (two shifts, an or), the size test, the cursor add
+    # and at least one range probe (two compares) where the line is coded
+    k4_ops = len(sets_present) * m_line_v.numel() * 8
+    del wf, m_line_v, mant_start_v
+
+    # ---- 6. VBR path: counters zeroed just before, read just after
+    counters = {"water_fill": k1.water_fill_rows, "scatter_words": k2.scatter_words_rows,
+                "vbr_scan": k3.vbr_reservoir_scan, "huffdec": k4.huffman_decode_rows}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    (words_v, nbits_v), enc_v_ms = timed(encode_v)
+    y_batch, dec_v_ms = timed(lambda: codec.decode_clip_vbr_packed(
+        words_v, cfg_v, x.shape[-1], dev))
+    t0 = time.perf_counter()
+    streams_v = [api.encode_array(x[i].T, cfg_v) for i in range(CLIPS)]
+    t_enc_full_v = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded_v = [api.decode_array(s_, "fast")[0] for s_ in streams_v]
+    t_dec_full_v = time.perf_counter() - t0
+    launches_v = {name: fn.launches for name, fn in counters.items()}
+    print(f"vbr path launches: {launches_v}")
+    check(all(launches_v[k_] > 0 for k_ in ("scatter_words", "vbr_scan", "huffdec")),
+          "a kernel of the VBR path was never launched")
+
+    snrs_v = []
+    y_batch = y_batch.cpu().numpy()
+    for i, y in enumerate(decoded_v):
+        check(y.shape == x[i].T.shape and bool(np.isfinite(y).all()),
+              f"VBR clip {i} decode shape/finite")
+        snrs_v.append(snr_db(x[i].T.astype(np.float64), y.astype(np.float64)))
+    check(min(snrs_v) > 10.0, f"VBR clip SNR too low: {min(snrs_v):.2f} dB")
+    # the batched decode against a solo decode of the same words (clip 0);
+    # f32 IMDCT matmuls of two batch shapes: within 1e-5
+    y0 = codec.decode_clip_vbr_packed(words_v[0], cfg_v, x.shape[-1], dev)
+    check(float((y0.cpu() - torch.as_tensor(y_batch[0])).abs().max()) < 1e-5,
+          "batched VBR decode differs from the solo decode of the same words")
+    snr_batch = [snr_db(x[i].astype(np.float64), y_batch[i].astype(np.float64))
+                 for i in range(CLIPS)]
+    check(min(snr_batch) > 10.0, f"batched VBR SNR too low: {min(snr_batch):.2f} dB")
+    gpu_snr_v = snr_db(x0, api.decode_array(api.encode_array(x0, cfg_v), "fast")[0])
+    cpu_snr_v = snr_db(x0, api.decode_array(
+        api.encode_array(x0, cfg_v, device="cpu"), "fast", device="cpu")[0])
+    print(f"VBR clip 0 (2 s): card SNR {gpu_snr_v:.4f} dB, CPU SNR {cpu_snr_v:.4f} dB")
+    check(abs(gpu_snr_v - cpu_snr_v) < 0.1, "VBR card SNR differs from the CPU run")
+
+    prof_v = profile_device(encode_v)
+    print(json.dumps({"profile_vbr": {"what": "one batched VBR device encode",
+                                      **prof_v}}))
+    print(json.dumps({"vbr_path": {
+        "config": "vbr-huffman fast", "clips": CLIPS, "clip_seconds": SECONDS,
+        "rows": rows, "lanes": lanes, "frames": n_fr,
+        "device_encode_ms": enc_v_ms, "device_decode_ms": dec_v_ms,
+        "audio_s_per_s_device": audio_s / (enc_v_ms / 1e3),
+        "audio_s_per_s_device_decode": audio_s / (dec_v_ms / 1e3),
+        "audio_s_per_s_full_encode": audio_s / t_enc_full_v,
+        "audio_s_per_s_full_decode": audio_s / t_dec_full_v,
+        "tid_share": tid_share, "sets_walked": sets_present,
+        "launches": launches_v, "snr_db": snrs_v, "snr_db_batched": snr_batch,
+        "clip0_2s_snr_card": gpu_snr_v, "clip0_2s_snr_cpu": cpu_snr_v,
+        "stream_bytes": sum(len(s_) for s_ in streams_v), "card": card}}))
+
     b1, b1_by = bound(k1_bytes, k1_ops)
     b2, b2_by = bound(k2_bytes, k2_ops)
+    b3, b3_by = bound(k3_bytes, k3_ops)
+    b4, b4_by = bound(k4_bytes, k4_ops)
     kernels = [
         {"name": "water_fill", "route": "cuda",
          "source": "tac_torch/csrc/water_fill.cu",
          "replaces": "tac/ops/pallas_alloc.py:308",
-         "launches": launches["water_fill"], "ok": True, "max_abs_err": max_err,
+         "launches": launches["water_fill"], "ok": True, "max_abs_err": k1_err,
          "ms": k1_ms, "ms_one_launch": k1_one_ms, "chunks": n_chunks,
          "plain_ms": k1_plain_ms, "bound_ms": b1, "bound_by": b1_by,
          "library_ms": None},
         {"name": "scatter_words", "route": "cuda",
          "source": "tac_torch/csrc/scatter_words.cu",
          "replaces": "tac/ops/pallas_pack.py:161",
-         "launches": launches["scatter_words"], "ok": True,
-         "max_abs_err": k2_err, "ms": k2_ms, "ms_one_launch": k2_one_ms,
+         "launches": launches["scatter_words"],
+         "launches_vbr_path": launches_v["scatter_words"], "ok": True,
+         "max_abs_err": max(k2_err, k2v_err), "ms": k2_ms,
+         "ms_one_launch": k2_one_ms, "ms_vbr_chunk_launch": k2_vbr_chunk_ms,
          "chunks": n_chunks, "plain_ms": k2_plain_ms, "bound_ms": b2,
          "bound_by": b2_by, "library_ms": k2_lib_ms},
+        # ms: the batched VBR encode's one launch (32 lanes x 647 frames);
+        # plain_ms: the one plain run that the comparison above made
+        {"name": "vbr_scan", "route": "cuda",
+         "source": "tac_torch/csrc/vbr_scan.cu",
+         "replaces": "tac/ops/pallas_vbr_scan.py:191",
+         "launches": launches_v["vbr_scan"], "ok": True, "max_abs_err": k3_err,
+         "ms": k3_ms, "ms_per_clip_launch": k3_clip_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": b3, "bound_by": b3_by, "library_ms": None},
+        # ms: the batched VBR decode's launches, one per table set present,
+        # each over all 20 704 rows; plain_ms likewise, one run per set
+        {"name": "huffdec", "route": "cuda",
+         "source": "tac_torch/csrc/huffdec.cu",
+         "replaces": "tac/ops/pallas_huffdec.py:175",
+         "launches": launches_v["huffdec"], "ok": True, "max_abs_err": k4_err,
+         "ms": k4_ms, "ms_per_clip_launch": k4_clip_ms, "sets_walked": sets_present,
+         "plain_ms": k4_plain_ms, "bound_ms": b4, "bound_by": b4_by,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)

@@ -1,8 +1,9 @@
 """tac_torch — the tac perceptual audio codec in PyTorch, for NVIDIA Hopper.
 
 A port of the JAX package ``tac`` (which stays the reference): fixed-rate
-L/R coding of the PAC-T format, with hand-written CUDA kernels for the
-bit allocation (K1) and the bit packing (K2). Entry points run on CUDA
+and Huffman-VBR L/R coding of the PAC-T format, with hand-written CUDA
+kernels for the bit allocation (K1), the bit packing (K2), the VBR
+bit-reservoir chain (K3) and the Huffman decode walk (K4). Entry points run on CUDA
 unless the caller passes ``device="cpu"``.
 """
 

@@ -3,8 +3,8 @@
 Each source in tac_torch/csrc/ compiles with nvcc into its own shared
 library with a plain C interface, loaded with ctypes (no PyTorch headers,
 so a build takes seconds). Libraries go to tac_torch/_build/, named by a
-hash of the source and the flags: a changed source builds anew at first
-use, an unchanged one loads as is.
+hash of the source, the headers it includes and the flags: a changed source
+or header builds anew at first use, an unchanged one loads as is.
 """
 
 from __future__ import annotations
@@ -24,11 +24,14 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-# kernel name -> (source, extra flags). water_fill's decisions compare
-# smr - DEC[m] bit for bit with the reference: no multiply-add contraction.
+# kernel name -> (source, extra flags, headers it includes). The water-fill
+# chain (water_fill.cuh) compares smr - DEC[m] bit for bit with the
+# reference: no multiply-add contraction in either kernel that runs it.
 KERNELS = {
-    "water_fill": ("water_fill.cu", ["-fmad=false"]),
-    "scatter_words": ("scatter_words.cu", []),
+    "water_fill": ("water_fill.cu", ["-fmad=false"], ["water_fill.cuh"]),
+    "scatter_words": ("scatter_words.cu", [], []),
+    "vbr_scan": ("vbr_scan.cu", ["-fmad=false"], ["water_fill.cuh"]),
+    "huffdec": ("huffdec.cu", [], []),
 }
 
 _loaded: dict = {}
@@ -47,15 +50,16 @@ def nvcc() -> str:
 
 
 def _command(name: str, out: str) -> list:
-    src, extra = KERNELS[name]
+    src, extra, _ = KERNELS[name]
     return [*ARCH, *BASE_FLAGS, *extra, "-o", out, os.path.join(CSRC, src)]
 
 
 def library_path(name: str) -> str:
-    src, extra = KERNELS[name]
+    src, extra, headers = KERNELS[name]
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, src), "rb") as f:
-        h.update(f.read())
+    for part in (src, *headers):
+        with open(os.path.join(CSRC, part), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(ARCH + BASE_FLAGS + extra).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -1,5 +1,5 @@
-"""Public API: audio arrays ⇄ PAC-T bytes (counterpart of the fixed-rate
-subset of tac/api.py).
+"""Public API: audio arrays ⇄ PAC-T bytes (counterpart of tac/api.py for
+fixed-rate and Huffman-VBR L/R streams).
 
 The device pipeline (tac_torch.codec) produces packed payload words; the
 host adds the PAC-T header and the u16-prefixed block framing. Entry points
@@ -34,7 +34,9 @@ def encode_array(x: np.ndarray, cfg: CodecConfig, device=None) -> bytes:
         cfg = cfg.replace(n_channels=c)
     check_supported(cfg)
     h = cfg.n_mdct_lines
-    words, nbits = codec.encode_clip_packed(x.T, cfg, device)
+    enc = (codec.encode_clip_vbr_packed if cfg.use_huffman
+           else codec.encode_clip_packed)
+    words, nbits = enc(x.T, cfg, device)
     # stream order is block-major, channel-minor: [F, C]
     w = words.cpu().numpy().view(np.uint32).swapaxes(0, 1)
     payload = rows_to_stream(w, nbits.cpu().numpy().swapaxes(0, 1))
@@ -43,7 +45,7 @@ def encode_array(x: np.ndarray, cfg: CodecConfig, device=None) -> bytes:
         bitrate_bps=cfg.bitrate_bps, n_mdct_lines=h, n_mdct_lines_short=0,
         n_scale_bits=cfg.n_scale_bits, n_mant_size_bits=cfg.n_mant_size_bits,
         n_lines_long=bands.lines_per_band(cfg.sample_rate, h),
-        n_lines_short=None, huffman=False, blockswitch=False, ms=False)
+        n_lines_short=None, huffman=cfg.use_huffman, blockswitch=False, ms=False)
     return bs.write_header(hdr) + payload
 
 
@@ -71,6 +73,7 @@ def decode_array(data: bytes, precision: str = "parity", device=None
     w32 = -(-codec.payload_capacity_bits(cfg) // 32)
     rows = stream_to_rows(data, offs, lens, w32)           # [F*C, W32]
     words = np.ascontiguousarray(rows.reshape(f, c, w32).swapaxes(0, 1))
-    x = codec.decode_clip_packed(words.view(np.int32), cfg, hdr.num_samples,
-                                 device)
+    dec = (codec.decode_clip_vbr_packed if hdr.huffman
+           else codec.decode_clip_packed)
+    x = dec(words.view(np.int32), cfg, hdr.num_samples, device)
     return x.cpu().numpy().T.astype(np.float32), hdr.sample_rate

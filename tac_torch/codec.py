@@ -1,16 +1,25 @@
-"""Codec core: fixed-rate L/R encode to payload words and decode back
-(counterpart of the fixed-rate subset of tac/codec.py, SPEC.md §4–§7).
+"""Codec core: L/R encode to payload words and decode back, fixed-rate and
+Huffman VBR (counterpart of those parts of tac/codec.py, SPEC.md §4–§8).
 
-Encode: frame → window-fused MDCT (matmul; FFT in parity) → psy SMRs →
-bit allocation → quantize → payload fields → bit pack, in row chunks of
-ENC_CHUNK frames. Decode: read fields → dequantize → IMDCT → overlap-add.
+Fixed-rate encode: frame → window-fused MDCT (matmul; FFT in parity) → psy
+SMRs → bit allocation → quantize → payload fields → bit pack, in row chunks
+of ENC_CHUNK frames. Decode: read fields → dequantize → IMDCT → overlap-add.
 Every frame row is independent, so all leading axes (clips, channels,
 frames) flatten into one row axis.
 
-On a CUDA device, fast precision allocates with kernel K1 and packs with
-kernel K2. Parity precision allocates with the plain f64 loop (as tac
-gates its kernel at codec.py:235-248); its packing goes through K2, which
-is integer-exact.
+VBR encode (SPEC.md §8) has three phases. Phase 1, in row chunks: analysis
+plus, per band, the Huffman-coded cost at every codable allocation 2..8
+under each trained table set — all budget-free. Phase 2: the bit-reservoir
+chain, the one serial axis, every channel a lane and all frames in one
+call. Phase 3, in row chunks: quantize at the chain's allocations, build
+the Huffman-or-raw fields, pack. VBR decode reads the head fields, then
+the mantissas raw by cumsum offsets or by the serial Huffman walk per set.
+
+On a CUDA device, fast precision allocates with kernel K1 (fixed-rate) or
+runs the reservoir chain as kernel K3 (VBR), packs with kernel K2 and walks
+Huffman rows with kernel K4. Parity precision allocates with the plain f64
+loops (as tac gates its kernels at codec.py:235-248); its packing and
+Huffman walk go through K2 and K4, which are integer-exact.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 from tac_torch import bands, quant
 from tac_torch import bitalloc as ba
 from tac_torch import consts
+from tac_torch import huffman as hf
 from tac_torch import psy as psy_mod
 from tac_torch.config import CodecConfig, check_supported, resolve_device
 from tac_torch.consts import CodecConsts, frame_budget  # noqa: F401
@@ -30,6 +40,9 @@ from tac_torch.dsp import mdct as fb
 from tac_torch.ops.alloc import water_fill_rows
 from tac_torch.ops.bitpack import pack_rows
 from tac_torch.ops.bitunpack import read_fields
+from tac_torch.ops.huffdec import huffman_decode_rows
+from tac_torch.ops.vbr_scan import (vbr_reservoir_scan,
+                                    vbr_reservoir_scan_plain)
 
 # Frame rows per encode chunk: bounds the psy and packer temporaries
 # (the [rows, NF] field matrices) independently of the batch size.
@@ -136,10 +149,14 @@ def payload_fields(code: FrameCode, cfg: CodecConfig, c: CodecConsts):
 
 
 def payload_capacity_bits(cfg: CodecConfig, c: CodecConsts | None = None) -> int:
-    """Raw fixed-rate payload capacity per (block, channel), in bits."""
+    """Payload capacity per (block, channel), in bits: the head, the
+    mantissa budget (with a full reservoir on top for VBR) and a word of
+    slack."""
     s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
-    head = s + bands.N_BANDS * (a + s)
+    head = s + bands.N_BANDS * (a + s) + (2 if cfg.use_huffman else 0)
     budget = c.budget if c is not None else frame_budget(cfg)
+    if cfg.use_huffman:
+        budget *= 1 + cfg.reservoir_factor
     return head + budget + 32
 
 
@@ -211,6 +228,246 @@ def decode_clip_packed(words, cfg: CodecConfig, t: int, device=None):
     w = torch.as_tensor(words).to(dev)
     lead = w.shape[:-1]                            # [..., C, F]
     code = _unpack_raw_fields(w.reshape(-1, w.shape[-1]), cfg, c)
+    y = decode_frame(code, cfg, c)                 # [K, N]
+    return fb.overlap_add(y.reshape(*lead, 2 * cfg.n_mdct_lines),
+                          cfg.n_mdct_lines, t)
+
+
+# ----------------------------------------------------------- VBR (huffman) --
+
+def cost_tables(cfg: CodecConfig, c: CodecConsts) -> tuple:
+    """Per-set device cost tables the encoder prices with (SPEC.md §8):
+    [7, 256] int32 each, one per trained set in cfg.huffman_sets."""
+    return tuple(h.cost for h in c.huff[:cfg.huffman_sets])
+
+
+def vbr_mantissa_pairs(mant, m_line, tid, huff: tuple, n_sets: int = 2):
+    """Huffman-or-raw mantissa field pairs (SPEC.md §8).
+
+    mant, m_line: int32[..., H]; tid: int32[...] (0 = raw, 1..3 = trained
+    sets); huff: the sets' tables. Returns (vals, wids) int32[..., 2H]: the
+    chosen set's codeword + escape-raw pairs where tid >= 1, a raw
+    m_line-bit field (second field width 0) where tid == 0. n_sets bounds
+    which sets the encoder may have picked."""
+    hv, hw = hf.encode_fields_device(mant, m_line, huff[0])
+    for sid in range(2, n_sets + 1):
+        hv_s, hw_s = hf.encode_fields_device(mant, m_line, huff[sid - 1])
+        here = (tid == sid)[..., None, None]
+        hv = torch.where(here, hv_s, hv)
+        hw = torch.where(here, hw_s, hw)
+    raw = (tid == 0)[..., None]
+    v0 = torch.where(raw, mant, hv[..., 0])
+    w0 = torch.where(raw, m_line, hw[..., 0])
+    v1 = torch.where(raw, 0, hv[..., 1])
+    w1 = torch.where(raw, 0, hw[..., 1])
+    shp = (*mant.shape[:-1], 2 * mant.shape[-1])
+    return (torch.stack([v0, v1], dim=-1).reshape(shp),
+            torch.stack([w0, w1], dim=-1).reshape(shp))
+
+
+def payload_fields_vbr(code: FrameCode, tid, cfg: CodecConfig, c: CodecConsts):
+    """(vals, wids) field matrices per SPEC.md §7 huffman layout:
+    ovs | 2-bit tableId | B alloc codes | B scale factors | huffman-or-raw
+    mantissa pairs. Leaves [..., NF], NF = 2+2B+2H."""
+    s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
+    alloc = ba.code_to_alloc(code.alloc_code)
+    m_line = torch.index_select(alloc, -1, c.band_of_line)
+    tid = tid.to(torch.int32)
+    hv, hw = vbr_mantissa_pairs(code.mant, m_line, tid, c.huff,
+                                cfg.huffman_sets)
+    vals = torch.cat([code.ovs[..., None], tid[..., None], code.alloc_code,
+                      code.scale, hv], dim=-1)
+    wids = torch.cat([torch.full_like(code.ovs[..., None], s),
+                      torch.full_like(tid[..., None], 2),
+                      torch.full_like(code.alloc_code, a),
+                      torch.where(alloc > 0, s, 0).to(torch.int32), hw], dim=-1)
+    return vals, wids
+
+
+def _band_sum_int(x: torch.Tensor, c: CodecConsts) -> torch.Tensor:
+    """Per-band sum of integer x[..., H] → int64 [..., N_BANDS]: one cumsum,
+    then differences at the band edges (exact for integers)."""
+    cs = torch.nn.functional.pad(x.cumsum(-1), (1, 0))
+    return (torch.index_select(cs, -1, c.band_edges[1])
+            - torch.index_select(cs, -1, c.band_edges[0]))
+
+
+def _vbr_band_costs(lines: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
+    """Budget-independent half of VBR pricing, batched over frame rows.
+
+    The mantissa a line would get at band allocation m depends only on
+    (lines, m), so the Huffman cost of each band at every codable m ∈ [2, 8]
+    is computed here, in parallel, outside the serial reservoir chain.
+    lines f[R, H] → bits_huf int32[R, B, 7·S]: set s (of the S =
+    cfg.huffman_sets trained sets) occupies columns [7(s-1), 7s). The
+    candidate mantissas are shared across sets; only the cost rows differ."""
+    s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
+    ovs = quant.scale_factor(lines.abs().amax(-1), s, a)
+    scaled = lines * torch.exp2(ovs.to(lines.dtype))[..., None]
+    band_max = psy_mod.band_slice_max(scaled.abs(), c.band_ranges, 0.0)
+    band_max = torch.where(c.n_lines > 0, band_max, 0.0)
+    cost_tabs = cost_tables(cfg, c)
+    outs = [[] for _ in cost_tabs]
+    for m in range(hf.MIN_M, hf.MAX_M + 1):
+        sf_m = quant.scale_factor(band_max, s, m)
+        mant_m = quant.mantissa(
+            scaled, torch.index_select(sf_m, -1, c.band_of_line), s, m).long()
+        for out, tab in zip(outs, cost_tabs):
+            out.append(_band_sum_int(tab[m - hf.MIN_M][mant_m], c))
+    return torch.cat([torch.stack(o, dim=-1) for o in outs],
+                     dim=-1).to(torch.int32)
+
+
+def _vbr_phase1(frame_rows, cfg: CodecConfig, c: CodecConsts):
+    """[M, N] frame rows → (lines [M, H], smr [M, B], bits_huf [M, B, 7·S])."""
+    lines, smr = analyze_frame(frame_rows, cfg, c)
+    return lines, smr, _vbr_band_costs(lines, cfg, c)
+
+
+def _reservoir_chain(smr, bits_huf, n_lines, res0, base: int, cap: int,
+                     cfg: CodecConfig):
+    """The serial bit-reservoir chain (SPEC.md §8), frame-major.
+
+    smr f[F, L, B], bits_huf int32[F, L, B, 7·S], n_lines int32[B] or
+    [F, L, B], res0 int32[L] → (alloc int32[F, L, B], tid/used/res
+    int32[F, L]). Fast precision runs K3 (its plain version for CPU
+    tensors); parity keeps the plain f64 loop."""
+    smr_eff = torch.zeros_like(smr) if cfg.alloc_mode == "uniform" else smr
+    smr_q = ba.snap_smr(smr_eff)
+    max_mant = min(cfg.max_mant_bits, ba.MANT_MAX)
+    if cfg.precision == "parity":
+        return vbr_reservoir_scan_plain(smr_q, bits_huf, n_lines, res0,
+                                        base=base, cap=cap, max_mant=max_mant)
+    return vbr_reservoir_scan(smr_q.to(torch.float32).contiguous(),
+                              bits_huf.contiguous(), n_lines, res0,
+                              base=base, cap=cap, max_mant=max_mant)
+
+
+def _vbr_phase1_lanes(frames, cfg: CodecConfig, c: CodecConsts):
+    """Phase 1 of the VBR encode over all lanes, in row chunks. frames
+    f[L, F, N] → (lines f[L·F, H] lane-major, smr f[F, L, B], bits_huf
+    int32[F, L, B, 7·S]); the last two frame-major, as the chain reads
+    them."""
+    lanes, f = frames.shape[:2]
+    parts = [_vbr_phase1(fc, cfg, c)
+             for fc in frames.reshape(lanes * f, -1).split(ENC_CHUNK)]
+    lines, smr, bits_huf = (torch.cat(p) for p in zip(*parts))
+
+    def to_fl(x):                                  # [L·F, ...] → [F, L, ...]
+        return x.reshape(lanes, f, *x.shape[1:]).transpose(0, 1).contiguous()
+
+    return lines, to_fl(smr), to_fl(bits_huf)
+
+
+def _vbr_decisions(frames, res0, cfg: CodecConfig, c: CodecConsts):
+    """Phases 1 + 2 of the VBR encode. frames f[L, F, N], res0 int32[L] →
+    (lines f[L·F, H], allocs int32[F, L, B], tid/used/res int32[F, L])."""
+    lines, smr, bits_huf = _vbr_phase1_lanes(frames, cfg, c)
+    allocs, tids, used, res = _reservoir_chain(
+        smr, bits_huf, c.n_lines, res0, c.budget,
+        cfg.reservoir_factor * c.budget, cfg)
+    return lines, allocs, tids, used, res
+
+
+def _encode_vbr_lanes_to_words(frames, res0, cfg: CodecConfig, c: CodecConsts):
+    """Whole-clip VBR encode over independent lanes (channels of clips).
+
+    frames f[L, F, N], res0 int32[L] → (words int32[L, F, W32], nbits
+    int64[L, F]). Phase 3 (quantize at the chain's allocations, the VBR
+    field build and the bit pack) runs per row chunk, so the FrameCode and
+    the [R, 2+2B+2H] field matrices stay chunk-sized."""
+    lanes, f = frames.shape[:2]
+    cap = payload_capacity_bits(cfg, c)
+    lines, allocs, tids, _, _ = _vbr_decisions(frames, res0, cfg, c)
+    alloc_rows = allocs.transpose(0, 1).reshape(lanes * f, -1)
+    tid_rows = tids.transpose(0, 1).reshape(lanes * f)
+    words, nbits = [], []
+    for ln, al, td in zip(lines.split(ENC_CHUNK), alloc_rows.split(ENC_CHUNK),
+                          tid_rows.split(ENC_CHUNK)):
+        code = quantize_given_alloc(ln, al, cfg, c)
+        w, n = pack_rows(*payload_fields_vbr(code, td, cfg, c), cap)
+        words.append(w)
+        nbits.append(n)
+    words = torch.cat(words)
+    return (words.reshape(lanes, f, words.shape[-1]),
+            torch.cat(nbits).reshape(lanes, f))
+
+
+def encode_clip_vbr_packed(x, cfg: CodecConfig, device=None):
+    """VBR encode + Huffman field pack on the device. x: float [..., C, T]
+    → (words int32 [..., C, F, W32], nbits int64 [..., C, F]). All leading
+    axes flatten into reservoir lanes (each channel its own chain, starting
+    at fill 0), so a batch gives each clip the bytes of a solo encode."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    c = make_consts(cfg, dev)
+    xt = torch.as_tensor(x).to(dev).to(c.dtype)
+    frames = fb.frame_signal(xt, cfg.n_mdct_lines)
+    lead, f = frames.shape[:-2], frames.shape[-2]  # [..., C], F
+    lanes = frames.reshape(-1, f, frames.shape[-1])
+    res0 = torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev)
+    words, nbits = _encode_vbr_lanes_to_words(lanes, res0, cfg, c)
+    return words.reshape(*lead, f, words.shape[-1]), nbits.reshape(*lead, f)
+
+
+def _huffman_or_raw(wf, mant_start, m_line, tid, mant_raw, huff: tuple):
+    """Select Huffman-decoded or raw mantissas per row. Each table set's
+    walk (K4) runs only if some row carries that tid (a host-side check), so
+    an all-raw stream pays no walk and a single-set stream pays one."""
+    out = mant_raw
+    for sid, hc in enumerate(huff, start=1):
+        here = tid == sid
+        if bool(here.any()):
+            dec = huffman_decode_rows(wf, mant_start, m_line, hc)
+            out = torch.where(here[:, None], dec, out)
+    return out
+
+
+def _vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
+    """The fixed-offset head of int32 [K, W32] VBR payload rows (SPEC.md §7
+    huffman layout) → (ovs [K], tid [K], alloc_code [K, B], scale [K, B],
+    m_line int32 [K, H], mant_start int32 [K]): everything the mantissa
+    read needs, and nothing of the mantissas."""
+    s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
+    nb = bands.N_BANDS
+    k = wf.shape[0]
+    dev = wf.device
+    head_off = torch.cat([torch.tensor([0, s], dtype=torch.int64, device=dev),
+                          s + 2 + a * torch.arange(nb, device=dev)])
+    head_wid = torch.cat([torch.tensor([s, 2], device=dev),
+                          torch.full((nb,), a, device=dev)])
+    head = read_fields(wf, head_off.expand(k, nb + 2), head_wid.expand(k, nb + 2))
+    ovs, tid, alloc_code = head[:, 0], head[:, 1], head[:, 2:]
+    alloc = ba.code_to_alloc(alloc_code)
+    sf_w = torch.where(alloc > 0, s, 0).to(torch.int64)
+    sf_end = torch.cumsum(sf_w, dim=1)
+    sf = read_fields(wf, (s + 2 + a * nb) + (sf_end - sf_w), sf_w)
+    m_line = torch.index_select(alloc, 1, c.band_of_line).contiguous()
+    mant_start = ((s + 2 + a * nb) + sf_end[:, -1]).to(torch.int32)
+    return ovs, tid, alloc_code, sf, m_line, mant_start
+
+
+def _unpack_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
+                       c: CodecConsts) -> FrameCode:
+    """int32 [K, W32] VBR payload rows → FrameCode [K, ...]: the head, then
+    raw rows' mantissas via cumsum-offset gathers and Huffman rows' via the
+    serial decode walk."""
+    ovs, tid, alloc_code, sf, m_line, mant_start = _vbr_head(wf, cfg, c)
+    m_end = torch.cumsum(m_line, dim=1)
+    mant_raw = read_fields(wf, mant_start[:, None] + (m_end - m_line), m_line)
+    mant = _huffman_or_raw(wf, mant_start, m_line, tid, mant_raw, c.huff)
+    return FrameCode(ovs=ovs, alloc_code=alloc_code, scale=sf, mant=mant)
+
+
+def decode_clip_vbr_packed(words, cfg: CodecConfig, t: int, device=None):
+    """words: int32 [..., C, F, W32] VBR payload rows (32-bit patterns) →
+    [..., C, T] audio, on `device` (CUDA unless named)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    c = make_consts(cfg, dev)
+    w = torch.as_tensor(words).to(dev)
+    lead = w.shape[:-1]                            # [..., C, F]
+    code = _unpack_vbr_fields(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
     y = decode_frame(code, cfg, c)                 # [K, N]
     return fb.overlap_add(y.reshape(*lead, 2 * cfg.n_mdct_lines),
                           cfg.n_mdct_lines, t)

@@ -149,16 +149,15 @@ PRESETS = {
 
 
 def check_supported(cfg: CodecConfig) -> None:
-    """Raise for the stream families this package does not code yet
-    (fixed-rate L/R without block switching is what it codes)."""
-    missing = [name for name, on in (("use_huffman", cfg.use_huffman),
-                                     ("use_block_switch", cfg.use_block_switch),
+    """Raise for the stream families this package does not code yet (it
+    codes L/R streams without block switching, fixed-rate or Huffman VBR)."""
+    missing = [name for name, on in (("use_block_switch", cfg.use_block_switch),
                                      ("stereo_mode='ms'",
                                       cfg.stereo_mode == "ms")) if on]
     if missing:
         raise NotImplementedError(
-            f"tac_torch codes fixed-rate L/R streams only; {', '.join(missing)} "
-            "is not ported yet (use the tac package)")
+            f"tac_torch codes L/R streams without block switching only; "
+            f"{', '.join(missing)} is not ported yet (use the tac package)")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -5,7 +5,8 @@ compute the same thing are these host-built tables (windows, bases, band
 maps, Bark grids, threshold in quiet). ``host_arrays`` builds them in NumPy
 exactly as tac/codec.py:make_consts and tac/psy.py:make_consts do, and
 ``consts_from_numpy`` uploads any such set of arrays — the port's own or
-the JAX package's, leaf for leaf — to a device.
+the JAX package's, leaf for leaf — to a device. Huffman configs also carry
+every trained table set (tac_torch/huffman.py:HUFF_LEAVES per set).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from tac_torch import bands
+from tac_torch import huffman as hf
 from tac_torch.config import CodecConfig
 from tac_torch.dsp import mdct as fb
 from tac_torch.dsp.window import hann_window, window_fn
@@ -59,7 +61,9 @@ class CodecConsts(NamedTuple):
     band_of_line: torch.Tensor   # [H] int64
     n_lines: torch.Tensor        # [N_BANDS] int32
     band_ranges: tuple           # ((start, end), ...) static line runs
+    band_edges: torch.Tensor     # [2, N_BANDS] int64 line-run starts / ends
     psy: Optional[PsyConsts]
+    huff: Optional[tuple]        # HuffConsts per trained set (index = tableId-1)
     budget: int                  # mantissa bits per block/channel
     mdct_gain: float             # 8 / mean(window^2)
     dtype: torch.dtype
@@ -140,7 +144,10 @@ def _psy_arrays(cfg: CodecConfig) -> dict:
 
 def host_arrays(cfg: CodecConfig) -> dict:
     """The config's constant arrays in NumPy: CODEC_LEAVES at the top level,
-    PSY_LEAVES under "psy" (None without the psy model)."""
+    PSY_LEAVES under "psy" (None without the psy model), and under "huffman"
+    one dict of HUFF_LEAVES per trained table set on disk (None for
+    fixed-rate configs; a decoder needs every set, whatever the encoder
+    was allowed to pick)."""
     h = cfg.n_mdct_lines
     dt = _dtype(cfg)
     w = window_fn(cfg.window, 2 * h, cfg.kbd_alpha)
@@ -151,6 +158,8 @@ def host_arrays(cfg: CodecConfig) -> dict:
         "band_of_line": bands.band_of_line(cfg.sample_rate, h),
         "n_lines": bands.lines_per_band(cfg.sample_rate, h),
         "psy": _psy_arrays(cfg) if cfg.use_psy else None,
+        "huffman": ([hf.host_tables(sid) for sid in range(1, hf.n_sets() + 1)]
+                    if cfg.use_huffman else None),
     }
 
 
@@ -196,7 +205,11 @@ def consts_from_numpy(cfg: CodecConfig, arrays: dict, device) -> CodecConsts:
         band_of_line=_up(arrays["band_of_line"], dev, torch.int64),
         n_lines=_up(arrays["n_lines"], dev, torch.int32),
         band_ranges=ranges,
+        band_edges=torch.tensor(ranges, dtype=torch.int64, device=dev).T
+        .contiguous(),
         psy=psy,
+        huff=(tuple(hf.device_tables(t, dev) for t in arrays["huffman"])
+              if arrays.get("huffman") else None),
         budget=frame_budget(cfg, h),
         mdct_gain=mdct_gain,
         dtype=ft,

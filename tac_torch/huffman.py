@@ -1,0 +1,208 @@
+"""Huffman entropy coding of mantissas (counterpart of tac/huffman.py,
+SPEC.md §8).
+
+Tables are canonical and trained offline; three sets fill the 2-bit tableId
+(0 = raw, 1/2/3 = trained sets; the package keeps its own copy of the three
+table files). Symbols are the raw m-bit mantissa codes plus ESCAPE (= 2^m),
+which is followed by the raw m bits.
+
+On the card every table lookup is a plain gather into a small device
+tensor: ``HuffConsts`` holds one set's cost rows [7, 256], encode rows
+[9, 256], the packed decode LUT [7, 2^lmax] that the plain decode walk
+reads, and the canonical (first, last, base) / rank→symbol arrays that
+kernel K4 (tac_torch/ops/huffdec.py) decodes with. ``host_tables`` builds
+them in NumPy; ``device_tables`` uploads any such set of arrays.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+MIN_M, MAX_M = 2, 8          # Huffman-codable mantissa sizes
+N_TAB = MAX_M - MIN_M + 1
+MAX_LEN = 16                 # longest codeword the decode kernel's tables hold
+_DIR = os.path.dirname(__file__)
+SET_PATHS = {1: os.path.join(_DIR, "huffman_tables.json"),
+             2: os.path.join(_DIR, "huffman_tables_t.json"),
+             3: os.path.join(_DIR, "huffman_tables_s.json")}
+
+# Array leaves of one table set, as ``host_tables`` returns them.
+HUFF_LEAVES = ("cost", "enc_code", "enc_len", "enc_esc", "dec_pak")
+
+
+class HuffConsts(NamedTuple):
+    """One trained table set on one device."""
+    cost: torch.Tensor       # [7, 256] int32 coded bits of symbol s at size m
+    enc_code: torch.Tensor   # [9, 256] int32 codeword (ESCAPE's where escaped)
+    enc_len: torch.Tensor    # [9, 256] int32 codeword length
+    enc_esc: torch.Tensor    # [9, 256] bool symbol has no codeword of its own
+    dec_pak: torch.Tensor    # [7, 2^lmax] int32 peek LUT: length << 16 | symbol
+    lmax: int                # peek width of dec_pak
+    canon: torch.Tensor      # [7, 17, 3] int32 (first, last, base) per length
+    perm: torch.Tensor       # [7, 257] int32 canonical rank → symbol
+
+
+def n_sets() -> int:
+    """Contiguous trained table sets available on disk (2/3 optional)."""
+    n = 1
+    while n + 1 in SET_PATHS and os.path.exists(SET_PATHS[n + 1]):
+        n += 1
+    return n
+
+
+@lru_cache(maxsize=4)
+def load_tables(set_id: int = 1) -> dict[int, dict[str, np.ndarray]]:
+    """{m: {lengths[2^m + 1], codes[2^m + 1]}} (last symbol = ESCAPE)."""
+    with open(SET_PATHS[set_id]) as f:
+        raw = json.load(f)
+    return {int(m): {"lengths": np.asarray(t["lengths"], np.int64),
+                     "codes": np.asarray(t["codes"], np.int64)}
+            for m, t in raw.items()}
+
+
+@lru_cache(maxsize=4)
+def cost_table_np(set_id: int = 1) -> np.ndarray:
+    """int32[MAX_M - 1, 2^MAX_M]: effective coded bits of symbol s at
+    mantissa size m (row m - MIN_M). Escaped symbols cost esc_len + m."""
+    tabs = load_tables(set_id)
+    out = np.zeros((N_TAB, 2 ** MAX_M), np.int32)
+    for m in range(MIN_M, MAX_M + 1):
+        lens = tabs[m]["lengths"]
+        out[m - MIN_M, : 2 ** m] = np.where(lens[:-1] > 0, lens[:-1],
+                                            lens[-1] + m)
+    return out
+
+
+@lru_cache(maxsize=4)
+def _enc_arrays(set_id: int = 1):
+    """Per-m encode arrays padded to [MAX_M+1 rows, 2^MAX_M cols]:
+    (code, len, escaped?). Row index = m (0/1 rows unused)."""
+    tabs = load_tables(set_id)
+    codes = np.zeros((MAX_M + 1, 2 ** MAX_M), np.int64)
+    lens = np.zeros((MAX_M + 1, 2 ** MAX_M), np.int64)
+    escaped = np.zeros((MAX_M + 1, 2 ** MAX_M), bool)
+    for m in range(MIN_M, MAX_M + 1):
+        t = tabs[m]
+        n = 2 ** m
+        has = t["lengths"][:-1] > 0
+        codes[m, :n] = np.where(has, t["codes"][:-1], t["codes"][-1])
+        lens[m, :n] = np.where(has, t["lengths"][:-1], t["lengths"][-1])
+        escaped[m, :n] = ~has
+    return codes, lens, escaped
+
+
+@lru_cache(maxsize=4)
+def _dec_luts(set_id: int = 1):
+    """Per-m peek LUTs: {m: (lut_sym[2^L], lut_len[2^L], L, escape_symbol)}."""
+    luts = {}
+    for m, t in load_tables(set_id).items():
+        lens, codes = t["lengths"], t["codes"]
+        width = int(max(lens))
+        sym_lut = np.zeros(1 << width, np.int32)
+        len_lut = np.zeros(1 << width, np.int32)
+        for s, (ln, c) in enumerate(zip(lens, codes)):
+            if ln == 0:
+                continue
+            base = c << (width - ln)
+            sym_lut[base:base + (1 << (width - ln))] = s
+            len_lut[base:base + (1 << (width - ln))] = ln
+        luts[m] = (sym_lut, len_lut, width, 2 ** m)
+    return luts
+
+
+def packed_dec_lut(set_id: int = 1) -> np.ndarray:
+    """int32[7, 2^lmax]: every table's peek LUT widened to the set's longest
+    codeword lmax, each entry length << 16 | symbol (0 = uncovered peek)."""
+    luts = _dec_luts(set_id)
+    lmax = max(v[2] for v in luts.values())
+    pak = np.zeros((N_TAB, 1 << lmax), np.int32)
+    for m in range(MIN_M, MAX_M + 1):
+        sym_lut, len_lut, width, _ = luts[m]
+        pak[m - MIN_M] = np.repeat((len_lut << 16) | sym_lut,
+                                   1 << (lmax - width))
+    return pak
+
+
+def canon_from_lut(dec_pak: np.ndarray):
+    """The canonical decode constants of a packed peek LUT [7, 2^lmax]:
+    (canon int32[7, 17, 3], perm int32[7, 257]). For table t and codeword
+    length l, the codes of that length are the contiguous ascending range
+    canon[t, l] = (first, last, base): a peek whose top l bits v lie in
+    [first, last] has length l and canonical rank v - first + base, and
+    perm[t, rank] is its symbol. Lengths without codes hold (1, 0, 0).
+    Raises ValueError when a length's codes are not one contiguous range."""
+    dec_pak = np.asarray(dec_pak)
+    lmax = int(dec_pak.shape[1]).bit_length() - 1
+    if dec_pak.shape != (N_TAB, 1 << lmax) or lmax > MAX_LEN:
+        raise ValueError(f"peek LUT of shape {dec_pak.shape} is not "
+                         f"[{N_TAB}, 2^lmax] with lmax <= {MAX_LEN}")
+    canon = np.zeros((N_TAB, MAX_LEN + 1, 3), np.int32)
+    canon[:, :, 0] = 1
+    perm = np.zeros((N_TAB, 2 ** MAX_M + 1), np.int32)
+    for t in range(N_TAB):
+        lens, syms = dec_pak[t] >> 16, dec_pak[t] & 0xFFFF
+        base = 0
+        for ln in range(1, lmax + 1):
+            idx = np.flatnonzero(lens == ln)
+            if not len(idx):
+                continue
+            codes = np.unique(idx >> (lmax - ln))
+            first, last = int(codes[0]), int(codes[-1])
+            span = 1 << (lmax - ln)
+            if (len(codes) != last - first + 1
+                    or len(idx) != len(codes) * span
+                    or base + len(codes) > perm.shape[1]):
+                raise ValueError(f"huffman table m={t + MIN_M} is not "
+                                 f"canonical-contiguous at length {ln}")
+            canon[t, ln] = (first, last, base)
+            perm[t, base:base + len(codes)] = syms[codes << (lmax - ln)]
+            base += len(codes)
+    return canon, perm
+
+
+def host_tables(set_id: int) -> dict:
+    """One table set's arrays in NumPy (HUFF_LEAVES)."""
+    codes, lens, escaped = _enc_arrays(set_id)
+    return {"cost": cost_table_np(set_id), "enc_code": codes, "enc_len": lens,
+            "enc_esc": escaped, "dec_pak": packed_dec_lut(set_id)}
+
+
+def device_tables(arrays: dict, device) -> HuffConsts:
+    """Upload one table set (see ``host_tables``) to `device`."""
+    def up(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    canon, perm = canon_from_lut(arrays["dec_pak"])
+    return HuffConsts(
+        cost=up(arrays["cost"], torch.int32),
+        enc_code=up(arrays["enc_code"], torch.int32),
+        enc_len=up(arrays["enc_len"], torch.int32),
+        enc_esc=up(arrays["enc_esc"], torch.bool),
+        dec_pak=up(arrays["dec_pak"], torch.int32),
+        lmax=int(np.asarray(arrays["dec_pak"]).shape[1]).bit_length() - 1,
+        canon=up(canon, torch.int32), perm=up(perm, torch.int32))
+
+
+def encode_fields_device(mant: torch.Tensor, m_line: torch.Tensor,
+                         hc: HuffConsts):
+    """Huffman-coded field pairs for frames' mantissas, on their device.
+
+    mant, m_line: int32[..., H] → (vals, wids) int32[..., H, 2]: per line a
+    codeword field and an escape-raw field (width 0 when not escaped or m
+    outside [MIN_M, MAX_M] — then the codeword field IS the raw mantissa).
+    Integer-identical to tac's encode_fields_device for the same set."""
+    m = torch.clamp(m_line, 0, MAX_M).long()
+    codable = (m_line >= MIN_M) & (m_line <= MAX_M)
+    sym = torch.clamp(mant, 0, 2 ** MAX_M - 1).long()
+    cw = torch.where(codable, hc.enc_code[m, sym], mant)
+    cl = torch.where(codable, hc.enc_len[m, sym], m_line)
+    esc = codable & hc.enc_esc[m, sym]
+    vals = torch.stack([cw, torch.where(esc, mant, 0)], dim=-1)
+    wids = torch.stack([cl, torch.where(esc, m_line, 0)], dim=-1)
+    return vals.to(torch.int32), wids.to(torch.int32)

@@ -2,7 +2,8 @@
 
 Replaces tac/ops/pallas_alloc.py:water_fill_rows (warm=True), whose
 Pallas body is warm_start_tile + water_fill_tile. The CUDA source is
-tac_torch/csrc/water_fill.cu; ``water_fill_rows_plain`` below is the same
+tac_torch/csrc/water_fill.cu (the chain itself in water_fill.cuh, shared
+with kernel K3); ``water_fill_rows_plain`` below is the same
 decision chain in plain PyTorch, batched over rows, and is what the
 wrapper runs for tensors on the CPU.
 
@@ -135,20 +136,27 @@ def water_fill_rows_plain(smr_q: torch.Tensor, n_lines: torch.Tensor,
                              torch.where(any_lone, f_frozen, frozen))
 
 
-_dec_devices: set = set()     # devices whose constant DEC table is filled
+_dec_filled: set = set()      # (entry name, device) whose DEC table is filled
+
+
+def fill_dec_table(lib, entry: str, device: int) -> None:
+    """Fill the constant DEC table of one kernel library on `device`, once
+    (every library that includes water_fill.cuh has its own copy)."""
+    if (entry, device) in _dec_filled:
+        return
+    set_dec = getattr(lib, entry)
+    set_dec.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    set_dec.restype = ctypes.c_int
+    err = set_dec(_DEC32.ctypes.data, device)
+    if err:
+        raise RuntimeError(f"{entry}: DEC table upload failed: CUDA error {err}")
+    _dec_filled.add((entry, device))
 
 
 def _lib(device: int):
     """The kernel's C entry; fills the DEC table on `device` at first use."""
     lib = _build.load("water_fill")
-    if device not in _dec_devices:
-        set_dec = lib.tac_water_fill_set_dec
-        set_dec.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        set_dec.restype = ctypes.c_int
-        err = set_dec(_DEC32.ctypes.data, device)
-        if err:
-            raise RuntimeError(f"water_fill DEC table upload failed: CUDA error {err}")
-        _dec_devices.add(device)
+    fill_dec_table(lib, "tac_water_fill_set_dec", device)
     fn = lib.tac_water_fill_rows
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -139,22 +139,24 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     device="cpu": no silent fallback."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((2048, 2))
-    cfg = TPRESETS["stereo44-128"]
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        tapi.encode_array(x, cfg)
-    data = tapi.encode_array(x, cfg, device="cpu")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        tapi.decode_array(data)
+    for preset in ("stereo44-128", "vbr-huffman"):
+        cfg = TPRESETS[preset]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tapi.encode_array(x, cfg)
+        data = tapi.encode_array(x, cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tapi.decode_array(data)
     with pytest.raises(RuntimeError):
-        tc.encode_clip_packed(x.T, cfg)
+        tc.encode_clip_packed(x.T, TPRESETS["stereo44-128"])
 
 
-@pytest.mark.parametrize("change", [{"use_huffman": True},
+@pytest.mark.parametrize("change", [{"use_huffman": True, "stereo_mode": "ms"},
                                     {"use_block_switch": True},
                                     {"stereo_mode": "ms"}])
 def test_unported_stream_families_raise(change):
-    """VBR/Huffman, block switching and mid/side are not ported: encode and
-    decode raise NotImplementedError instead of taking another path."""
+    """Block switching and mid/side (fixed-rate or VBR) are not ported:
+    encode and decode raise NotImplementedError instead of taking another
+    path."""
     cfg = TPRESETS["stereo44-128"].replace(**change)
     with pytest.raises(NotImplementedError):
         tapi.encode_array(np.zeros((4096, 2)), cfg, device="cpu")

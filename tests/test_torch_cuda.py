@@ -1,6 +1,7 @@
-"""Kernels K1 and K2 on an NVIDIA GPU against their plain PyTorch versions
-(exact: allocations and words are integers), including the constructed
-row where a fused multiply-add would flip a water-fill decision.
+"""Kernels K1-K4 on an NVIDIA GPU against their plain PyTorch versions
+(exact: allocations, words, reservoir decisions and mantissas are
+integers), including the constructed row where a fused multiply-add would
+flip a water-fill decision.
 
 Marked `cuda`; run on a machine with a card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -13,9 +14,13 @@ import torch
 
 from tac_torch import bands
 from tac_torch import bitalloc as tba
+from tac_torch import codec as tc
+from tac_torch.config import PRESETS
 from tac_torch.ops import alloc as tk1
 from tac_torch.ops import bitpack as tbp
+from tac_torch.ops import huffdec as tk4
 from tac_torch.ops import pack as tk2
+from tac_torch.ops import vbr_scan as tk3
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +93,151 @@ def test_k2_kernel_equals_plain(dev, nf, cap):
     want = tk2.scatter_words_rows_plain(c0, c1, word0, w32=w32)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _k3_both(dev, smr, bh, nl, res0, base, cap, max_mant=16):
+    args = (tba.snap_smr(torch.as_tensor(smr, dtype=torch.float32, device=dev))
+            .contiguous(),
+            torch.as_tensor(bh, dtype=torch.int32, device=dev).contiguous(),
+            torch.as_tensor(nl, dtype=torch.int32, device=dev).contiguous(),
+            torch.as_tensor(res0, dtype=torch.int32, device=dev).contiguous())
+    before = tk3.vbr_reservoir_scan.launches
+    got = tk3.vbr_reservoir_scan(*args, base=base, cap=cap, max_mant=max_mant)
+    assert tk3.vbr_reservoir_scan.launches == before + 1
+    want = tk3.vbr_reservoir_scan_plain(*args, base=base, cap=cap,
+                                        max_mant=max_mant)
+    torch.cuda.synchronize()
+    return [g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want]
+
+
+def _k3_inputs(rng, f, lanes, nl, n_sets):
+    smr = rng.normal(8, 22, (f, lanes, len(nl)))
+    m = rng.integers(2, 9, (f, lanes, len(nl), 7 * n_sets))
+    bh = (m * nl[None, None, :, None] * rng.uniform(0.7, 1.3, m.shape))
+    return smr, bh.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["one_set", "two_sets_ties", "three_sets",
+                                  "per_frame", "joint", "res0", "max_mant"])
+def test_k3_kernel_equals_plain(dev, case):
+    rng = np.random.default_rng(11)
+    f, lanes, nl, n_sets = 8, 5, NL, {"one_set": 1, "three_sets": 3}.get(case, 2)
+    base, cap, mm = 700, 2800, 16
+    res0 = np.zeros(lanes, np.int32)
+    if case == "joint":
+        nl, base, cap = np.concatenate([NL, NL]), 1400, 5600
+    smr, bh = _k3_inputs(rng, f, lanes, nl, n_sets)
+    nl_arg = nl
+    if case == "two_sets_ties":
+        raw = (np.arange(2, 9)[None, :] * NL[:, None]).astype(np.int32)
+        bh[0, 0, :, :7] = raw                      # set 1 == raw
+        bh[1, 1, :, 7:] = bh[1, 1, :, :7]          # set 2 == set 1
+        bh[2, 2, :, 7:] = np.minimum(bh[2, 2, :, :7], raw) - 1
+    elif case == "per_frame":
+        short = 2 * bands.lines_per_band(44100, 512)
+        nl_arg = np.where(rng.random((f, lanes, 1)) < 0.4, short, NL)
+    elif case == "res0":
+        res0 = rng.integers(0, cap, lanes)
+    elif case == "max_mant":
+        mm = 9
+    got, want = _k3_both(dev, smr, bh, nl_arg, res0, base, cap, mm)
+    for g, w, what in zip(got, want, ["alloc", "tid", "used", "res"]):
+        np.testing.assert_array_equal(g, w, err_msg=what)
+    if case == "two_sets_ties":
+        assert got[1][0, 0] != 1 and got[1][1, 1] != 2 and got[1][2, 2] == 2
+    if case == "res0":                             # the split-chain property
+        head, _ = _k3_both(dev, smr[:3], bh[:3], nl, res0, base, cap)
+        tail, _ = _k3_both(dev, smr[3:], bh[3:], nl, head[3][-1], base, cap)
+        for g, h, t in zip(got, head, tail):
+            np.testing.assert_array_equal(g, np.concatenate([h, t]))
+
+
+def test_k3_fma_row(dev):
+    """K1's constructed row as a one-frame, one-lane chain: the shared
+    decision chain must not contract smr - DEC[alloc] here either."""
+    bh = np.zeros((1, 1, 2, 7), np.int32)
+    got, want = _k3_both(dev, [[[22.924339294433594, 89.14434051513672]]], bh,
+                         [1, 2], [0], 24, 96)
+    np.testing.assert_array_equal(got[0], [[[2, 11]]])
+    np.testing.assert_array_equal(want[0], [[[2, 11]]])
+
+
+def _k4_both(dev, words, mant_start, m_line, hc):
+    args = (torch.as_tensor(words, dtype=torch.int32, device=dev).contiguous(),
+            torch.as_tensor(mant_start, dtype=torch.int32, device=dev),
+            torch.as_tensor(m_line, dtype=torch.int32, device=dev).contiguous())
+    before = tk4.huffman_decode_rows.launches
+    got = tk4.huffman_decode_rows(*args, hc)
+    assert tk4.huffman_decode_rows.launches == before + 1
+    want = tk4.huffman_decode_rows_plain(*args, hc)
+    torch.cuda.synchronize()
+    return got.cpu().numpy(), want.cpu().numpy()
+
+
+@pytest.mark.parametrize("sid", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(300, 128, 128), (70, 100, 6)])
+def test_k4_kernel_equals_plain_on_random_bits(dev, sid, shape):
+    """Random payload bits and sizes of every class (m = 0, 1, [2, 8] with
+    escapes under set 3, 9..16); the narrow shape walks past the payload,
+    where both clip to the last word; H = 100 is no multiple of the tile."""
+    k, h, w32 = shape
+    rng = np.random.default_rng(100 * sid + h)
+    words = rng.integers(0, 1 << 32, (k, w32), dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+    m_line = rng.choice([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 16], (k, h))
+    mant_start = rng.integers(0, 200, k)
+    hc = tc.make_consts(PRESETS["vbr-huffman"], dev).huff[sid - 1]
+    got, want = _k4_both(dev, words, mant_start, m_line, hc)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_k4_stall_on_uncovered_peek(dev):
+    """A table whose m = 2 codes leave a peek uncovered: length 0, symbol 0,
+    the cursor stays, in the kernel as in the plain walk."""
+    from tac_torch import huffman as th
+
+    arrays = dict(th.host_tables(1))
+    pak = np.array(arrays["dec_pak"])
+    lmax = pak.shape[1].bit_length() - 1
+    longest = int((pak[0] >> 16).max())
+    # the highest of the longest codewords spans the LUT's last entries
+    pak[0, -(1 << (lmax - longest)):] = 0
+    arrays["dec_pak"] = pak
+    hc = th.device_tables(arrays, dev)
+    peek = int(np.flatnonzero(pak[0] == 0)[0])
+    rng = np.random.default_rng(5)
+    words = rng.integers(0, 1 << 32, (64, 64), dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+    words[0] = np.uint32(peek << (32 - lmax)).view(np.int32)
+    m_line = rng.choice([0, 2, 2, 2, 5, 9], (64, 128))
+    m_line[0] = 2
+    got, want = _k4_both(dev, words, np.zeros(64, np.int32), m_line, hc)
+    np.testing.assert_array_equal(got, want)
+    assert (got[0] == 0).all()
+
+
+def test_vbr_round_trip_runs_k2_k3_k4(dev):
+    """encode_array → bytes → decode_array on a VBR config launches K2, K3
+    and K4, and the card's stream decodes like the CPU's."""
+    from tac_torch import api
+
+    fs = 44100
+    t = np.arange(fs // 2) / fs
+    rng = np.random.default_rng(3)
+    x = np.stack([0.4 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 554 * t),
+                  0.3 * np.sin(2 * np.pi * 660 * t)
+                  + 0.02 * rng.standard_normal(len(t))], 1)
+    cfg = PRESETS["vbr-huffman"]
+    counts = [tk2.scatter_words_rows, tk3.vbr_reservoir_scan,
+              tk4.huffman_decode_rows]
+    before = [c.launches for c in counts]
+    data = api.encode_array(x, cfg, device=dev)
+    y = api.decode_array(data, "fast", device=dev)[0]
+    assert all(c.launches > b for c, b in zip(counts, before))
+    y_cpu = api.decode_array(api.encode_array(x, cfg, device="cpu"), "fast",
+                             device="cpu")[0]
+
+    def snr(a, b):
+        return 10 * np.log10(np.mean(a ** 2) / np.mean((a - b) ** 2))
+
+    assert abs(snr(x, y) - snr(x, y_cpu)) < 0.1

@@ -1,0 +1,197 @@
+"""PyTorch port vs tac: the canonical-Huffman decode walk (kernel K4's plain
+version, tac_torch/ops/huffdec.py) against tac's lax.scan LUT walk
+(codec._huffman_decode_scan) and its Pallas kernel in interpret mode, on
+the same payload words: the real streams of tests/test_pallas_huffdec.py
+(sets 1 and 2), forced set-3 rows, random bits under every set, a table
+with an uncovered peek (the ln == 0 stall) and walks that run past the
+payload. Decoded mantissas are integers and must be equal."""
+
+import json
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tac import codec as jc
+from tac import huffman as jh
+from tac.config import PRESETS as JPRESETS
+from tac.ops.pallas_huffdec import huffman_decode_rows as pallas_decode
+from tac_torch import codec as tc
+from tac_torch import huffman as th
+from tac_torch.config import PRESETS as TPRESETS
+from tac_torch.ops import huffdec as tk4
+from tac_torch.ops.bitpack import pack_rows
+
+CPU = torch.device("cpu")
+JCFG, TCFG = JPRESETS["vbr-huffman"], TPRESETS["vbr-huffman"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _walk_inputs(words_i32: np.ndarray, cfg):
+    """(tid, mant_start, m_line) of VBR payload rows (the head layout of
+    SPEC.md §7, read by the port)."""
+    _, tid, _, _, m_line, mant_start = tc._vbr_head(
+        torch.from_numpy(words_i32), cfg, tc.make_consts(cfg, CPU))
+    return tid.numpy(), mant_start.numpy(), m_line.numpy()
+
+
+def _three_ways(words_i32, mant_start, m_line, sid, hc=None):
+    """(port plain, tac lax.scan walk, tac Pallas kernel interpreted)."""
+    hc = hc or tc.make_consts(TCFG, CPU).huff[sid - 1]
+    plain = tk4.huffman_decode_rows_plain(
+        torch.from_numpy(words_i32), torch.from_numpy(mant_start),
+        torch.from_numpy(m_line), hc)
+    assert plain.dtype == torch.int32
+    wj = jnp.asarray(words_i32.view(np.uint32))
+    scan = jc._huffman_decode_scan(wj, jnp.asarray(mant_start),
+                                   jnp.asarray(m_line), set_id=sid)
+    kern = pallas_decode(wj, jnp.asarray(mant_start), jnp.asarray(m_line),
+                         interpret=True, set_id=sid)
+    return plain.numpy(), np.asarray(scan), np.asarray(kern)
+
+
+@pytest.mark.parametrize("sid", [1, 2])
+def test_plain_k4_on_tac_streams(sid, rng):
+    """Rows tac encoded: a stereo tone clip (set 1) and castanets (set 2).
+    The plain walk equals tac's scan on every row, and the Pallas kernel on
+    the rows that carry the set (the others' walks are discarded garbage,
+    which the Pallas kernel reads by another rule)."""
+    fs = JCFG.sample_rate
+    if sid == 1:
+        t = np.arange(int(fs * 0.4)) / fs
+        sig = (0.5 * np.sin(2 * np.pi * 440 * t)
+               + 0.2 * np.sin(2 * np.pi * 2333 * t)
+               + 0.05 * rng.standard_normal(len(t)))
+        x, jcfg, tcfg = np.stack([sig, 0.8 * sig]), JCFG, TCFG
+    else:
+        from tools.material import castanets
+
+        x = castanets(fs, 0.6)[None, :]
+        jcfg, tcfg = JCFG.replace(n_channels=1), TCFG.replace(n_channels=1)
+    words, _ = jc.encode_clip_vbr_packed(jnp.asarray(x, jnp.float32), jcfg)
+    w = np.array(words).reshape(-1, words.shape[-1]).view(np.int32)
+    tid, mant_start, m_line = _walk_inputs(w, tcfg)
+    here = tid == sid
+    assert here.any(), f"the stream has no tid={sid} rows"
+    plain, scan, kern = _three_ways(w, mant_start, m_line, sid)
+    np.testing.assert_array_equal(plain, scan)
+    np.testing.assert_array_equal(plain[here], kern[here])
+    # the wrapper runs the plain version for CPU tensors, counting no launch
+    before = tk4.huffman_decode_rows.launches
+    hc = tc.make_consts(tcfg, CPU).huff[sid - 1]
+    got = tk4.huffman_decode_rows(torch.from_numpy(w), torch.from_numpy(mant_start),
+                                  torch.from_numpy(m_line), hc)
+    assert tk4.huffman_decode_rows.launches == before
+    np.testing.assert_array_equal(got.numpy(), plain)
+
+
+def test_plain_k4_forced_set3_rows(rng):
+    """Rows re-packed with tableId 3 on every frame: the walk gives back
+    the mantissas that were packed, as tac's scan does."""
+    fs = TCFG.sample_rate
+    t = np.arange(int(fs * 0.2)) / fs
+    x = np.stack([0.5 * np.sin(2 * np.pi * 440 * t)
+                  + 0.05 * rng.standard_normal(len(t)),
+                  0.3 * np.sin(2 * np.pi * 3000 * t)])
+    cfg = TCFG.replace(huffman_sets=3)
+    c = tc.make_consts(cfg, CPU)
+    words, _ = tc.encode_clip_vbr_packed(x, cfg, device="cpu")
+    code = tc._unpack_vbr_fields(words.reshape(-1, words.shape[-1]), cfg, c)
+    tid3 = torch.full(code.ovs.shape, 3, dtype=torch.int32)
+    w3, nbits = pack_rows(*tc.payload_fields_vbr(code, tid3, cfg, c),
+                          tc.payload_capacity_bits(cfg, c))
+    assert int(nbits.max()) <= 32 * w3.shape[1]
+    tid, mant_start, m_line = _walk_inputs(w3.numpy(), cfg)
+    assert (tid == 3).all()
+    plain, scan, kern = _three_ways(w3.numpy(), mant_start, m_line, 3)
+    np.testing.assert_array_equal(plain, code.mant.numpy())
+    np.testing.assert_array_equal(plain, scan)
+    np.testing.assert_array_equal(plain, kern)
+    # and the whole unpack takes the set-3 walk
+    back = tc._unpack_vbr_fields(w3, cfg, c)
+    np.testing.assert_array_equal(back.mant.numpy(), code.mant.numpy())
+
+
+def _random_rows(rng, k=48, h=128, w32=128):
+    """Random payload bits and sizes of every class; a walk over h lines
+    takes at most 29 bits a line, so it stays inside w32 = 128 words."""
+    words = rng.integers(0, 1 << 32, (k, w32), dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+    m_line = rng.choice([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 16],
+                        (k, h)).astype(np.int32)
+    mant_start = rng.integers(0, 200, k).astype(np.int32)
+    return words, mant_start, m_line
+
+
+@pytest.mark.parametrize("sid", [1, 2, 3])
+def test_plain_k4_random_bits(sid, rng):
+    """Every table set on random bits: m outside [2, 8], escapes (set 3) and
+    all code lengths, all three walks equal on every row."""
+    words, mant_start, m_line = _random_rows(rng)
+    plain, scan, kern = _three_ways(words, mant_start, m_line, sid)
+    np.testing.assert_array_equal(plain, scan)
+    np.testing.assert_array_equal(plain, kern)
+    assert (plain[m_line == 0] == 0).all()
+
+
+def test_plain_k4_stalls_on_uncovered_peek(rng, tmp_path, monkeypatch):
+    """A table set whose m = 2 table lacks one codeword: a peek that no
+    codeword covers gives length 0 and symbol 0, and the walk stalls in
+    place, in the port as in tac's two walks."""
+    with open(jh.SET_PATHS[1]) as f:
+        raw = json.load(f)
+    lens, codes = raw["2"]["lengths"], raw["2"]["codes"]
+    # drop the highest of the longest codewords: the rest stay contiguous
+    drop = max(range(len(lens)), key=lambda i: (lens[i], codes[i]))
+    raw["2"]["lengths"][drop] = 0
+    path = tmp_path / "incomplete.json"
+    path.write_text(json.dumps(raw))
+    monkeypatch.setitem(jh.SET_PATHS, 99, str(path))
+    pak = jc._packed_dec_luts(99)[0]
+    monkeypatch.delitem(jc._PACKED_DEC_LUTS_CACHE, 99)     # leave no trace
+    assert (pak[0] == 0).any() and (pak[1:] != 0).all()
+    codes, lens99, escaped = jh._enc_arrays(99)
+    hc = th.device_tables({"cost": jh.cost_table_np(99), "enc_code": codes,
+                           "enc_len": lens99, "enc_esc": escaped,
+                           "dec_pak": pak}, CPU)
+
+    words, mant_start, m_line = _random_rows(rng)
+    plain, scan, kern = _three_ways(words, mant_start, m_line, 99, hc)
+    np.testing.assert_array_equal(plain, scan)
+    np.testing.assert_array_equal(plain, kern)
+    # a row of m = 2 lines starting on the uncovered peek never moves
+    lmax = pak.shape[1].bit_length() - 1
+    peek = int(np.flatnonzero(pak[0] == 0)[0])
+    row = np.full((1, 128), peek << (32 - lmax), np.uint32).view(np.int32)
+    m2 = np.full((1, 128), 2, np.int32)
+    stalled = tk4.huffman_decode_rows_plain(
+        torch.from_numpy(row), torch.zeros(1, dtype=torch.int32),
+        torch.from_numpy(m2), hc)
+    assert (stalled == 0).all()
+    m2[0, 5] = 9                                   # a raw field moves it on
+    moved = tk4.huffman_decode_rows_plain(
+        torch.from_numpy(row), torch.zeros(1, dtype=torch.int32),
+        torch.from_numpy(m2), hc).numpy()
+    assert (moved[0, :5] == 0).all() and moved[0, 5] == (peek << (32 - lmax)) >> 23
+
+
+def test_plain_k4_past_the_payload_clips_like_tac(rng):
+    """Walks that run off the row read words clipped to the last one, as
+    tac's scan does (both word indices clip to W32 - 1)."""
+    words, mant_start, m_line = _random_rows(rng, k=16, h=128, w32=6)
+    mant_start[:4] = [150, 191, 192, 400]          # start near / past the end
+    hc = tc.make_consts(TCFG, CPU).huff[0]
+    plain = tk4.huffman_decode_rows_plain(
+        torch.from_numpy(words), torch.from_numpy(mant_start),
+        torch.from_numpy(m_line), hc).numpy()
+    scan = jc._huffman_decode_scan(jnp.asarray(words.view(np.uint32)),
+                                   jnp.asarray(mant_start), jnp.asarray(m_line))
+    np.testing.assert_array_equal(plain, np.asarray(scan))

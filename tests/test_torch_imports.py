@@ -47,11 +47,13 @@ def test_port_imports_and_encodes_with_jax_and_tac_blocked():
         "import numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
         "import tac_torch, tac_torch.codec, tac_torch.ops.alloc, "
-        "tac_torch.ops.pack, tac_torch._build\n"
-        "data = tac_torch.encode_array(np.zeros((3000, 2)), "
-        "tac_torch.PRESETS['stereo44-128'], device='cpu')\n"
-        "y, fs = tac_torch.decode_array(data, device='cpu')\n"
-        "assert y.shape == (3000, 2) and fs == 44100\n"
+        "tac_torch.ops.pack, tac_torch.ops.vbr_scan, tac_torch.ops.huffdec, "
+        "tac_torch.huffman, tac_torch._build\n"
+        "for preset in ('stereo44-128', 'vbr-huffman'):\n"
+        "    data = tac_torch.encode_array(np.zeros((3000, 2)), "
+        "tac_torch.PRESETS[preset], device='cpu')\n"
+        "    y, fs = tac_torch.decode_array(data, device='cpu')\n"
+        "    assert y.shape == (3000, 2) and fs == 44100\n"
         "assert not any(m.split('.')[0] in ('jax', 'tac') for m in sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
