@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit) on error:
   1. card: the GPU's name and power limit (nvidia-smi's line, alone), torch
      and CUDA versions;
-  2. build: every CUDA kernel from tac_torch/csrc (one nvcc per source, all
-     started together), with nvcc's register / shared-memory / spill lines;
+  2. build: all five CUDA kernels from tac_torch/csrc (one nvcc per source,
+     all started together), with nvcc's register / shared-memory / spill
+     lines;
   3. kernel checks at the flagship's shapes: K1 (water-fill) and K2 (word
      scatter) equal their plain PyTorch versions exactly, on the card,
      including a constructed row where a fused multiply-add would change
@@ -29,10 +30,28 @@ Phases, each of which fails the run (non-zero exit) on error:
      device encode and decode (CUDA events), then encode_array → bytes →
      decode_array per clip, counters zeroed before and read after (K2, K3
      and K4 must have launched), SNRs, card vs CPU on clip 0, the share of
-     frames by tableId, one encode under torch.profiler.
-It prints "profile", "main_path", "profile_vbr", "vbr_path" and "kernels"
-JSON lines, and last {"ok": true, "device": {...}}. Without CUDA, or without the tac_torch
-package beside it, it exits non-zero and prints no result.
+     frames by tableId, one encode under torch.profiler;
+  7. K5 (fused framing + MDCT) against its plain version within
+     5e-6 * max|ref| at 32 channels x 647 frames x (2048 -> 1024), at the
+     block-switch transforms' sizes H = 256 and 128, and at F = 5 mono;
+     then the filterbank path: 16 x 15 s stereo -> mdct_analysis (K5) ->
+     mdct_synthesis (IMDCT matmul, overlap-add), round-trip SNR over 110 dB
+     (f32 sums of 2 048 terms);
+  8. block switching on 16 x 15 s of switching material (the same clips
+     plus a seeded strike train each; all four window states must occur,
+     SHORT in at least 2 % of frames): K1 with per-row band widths and K2 at
+     1 076 fields against their plain versions, then the fixed-rate
+     block-switch path (PRESETS["vbr-bs"] without Huffman) batched and per
+     clip, K1 and K2 counted;
+  9. the Huffman x block-switch combo (PRESETS["vbr-bs"]): K3 with per-frame
+     band widths, K2 at 2 101 fields and K4 behind the state-selected band
+     map against their plain versions, then the path batched and per clip,
+     K2, K3 and K4 counted. Both block-switch paths compare a batched decode
+     with a solo decode of the same words and the card with the CPU run.
+It prints "profile", "main_path", "profile_vbr", "vbr_path", "mdct_path",
+"profile_bs", "bs_path", "profile_bs_vbr", "bs_vbr_path" and "kernels" JSON
+lines, and last {"ok": true, "device": {...}}. Without CUDA, or without the
+tac_torch package beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -68,6 +87,37 @@ def make_clips(b: int, seconds: float, fs: int = 44100) -> np.ndarray:
         ch2 = 0.8 * sig + 0.02 * rng.standard_normal(len(t))
         clips.append(np.stack([sig, ch2]))
     return np.stack(clips).astype(np.float32)       # [B, 2, T]
+
+
+def strike_train(n: int, fs: int, rng) -> np.ndarray:
+    """About eight sharp attacks a second with timing jitter, peak 1: each a
+    wideband noise burst decaying in ~4 ms plus a 2.7 kHz ring (the castanet
+    generator of tools/material.py, drawn from `rng`)."""
+    x = np.zeros(n)
+    t0 = int(0.03 * fs)
+    dur = int(0.018 * fs)
+    k = np.arange(dur)
+    while t0 < n - int(0.02 * fs):
+        burst = rng.standard_normal(dur) * np.exp(-k / (0.004 * fs))
+        ring = 0.6 * np.sin(2 * np.pi * 2700 * k / fs + rng.uniform(0, 6.28))
+        ring *= np.exp(-k / (0.006 * fs))
+        x[t0:t0 + dur] += rng.uniform(0.5, 0.9) * (0.7 * burst + ring)
+        t0 += int(fs * rng.uniform(0.10, 0.16))
+    return x / max(np.max(np.abs(x)), 1e-9)
+
+
+def make_switching_clips(b: int, seconds: float, fs: int = 44100) -> np.ndarray:
+    """Material that switches blocks: the harmonic clips plus, per clip, a
+    strike train of amplitude 0.3-0.5 from the clip's own seed (the second
+    channel at 0.8, as its harmonics), scaled where needed to peak 0.99. The
+    harmonic clips alone never leave the LONG state."""
+    x = make_clips(b, seconds, fs).astype(np.float64)
+    for i in range(b):
+        rng = np.random.default_rng(0xCA57 + i)
+        strikes = rng.uniform(0.3, 0.5) * strike_train(x.shape[-1], fs, rng)
+        x[i] += np.stack([strikes, 0.8 * strikes])
+        x[i] *= min(1.0, 0.99 / np.abs(x[i]).max())
+    return x.astype(np.float32)                     # [B, 2, T]
 
 
 def snr_db(x: np.ndarray, y: np.ndarray) -> float:
@@ -173,6 +223,360 @@ def worst_err(got, want) -> int:
         got, want = (got,), (want,)
     return max((int((g.long() - w.long()).abs().max().item()) if g.numel() else 0)
                for g, w in zip(got, want))
+
+
+def decode_checks(x, decoded, what: str) -> list:
+    """Per-clip SNRs of decoded [T, C] arrays against x [B, C, T]; fails on a
+    wrong shape, a non-finite sample or an SNR of 10 dB or less."""
+    snrs = []
+    for i, y in enumerate(decoded):
+        check(y.shape == x[i].T.shape and bool(np.isfinite(y).all()),
+              f"{what} clip {i} decode shape/finite")
+        snrs.append(snr_db(x[i].T.astype(np.float64), y.astype(np.float64)))
+    check(min(snrs) > 10.0, f"{what} clip SNR too low: {min(snrs):.2f} dB")
+    return snrs
+
+
+def card_vs_cpu(x0, cfg, what: str):
+    """Round-trip SNR of one short clip coded on the card and on the CPU by
+    the same entry points; fails when they differ by 0.1 dB or more."""
+    from tac_torch import api
+
+    gpu = snr_db(x0, api.decode_array(api.encode_array(x0, cfg), "fast")[0])
+    cpu = snr_db(x0, api.decode_array(
+        api.encode_array(x0, cfg, device="cpu"), "fast", device="cpu")[0])
+    print(f"{what} clip 0 ({len(x0) / cfg.sample_rate:.0f} s): card SNR "
+          f"{gpu:.4f} dB, CPU SNR {cpu:.4f} dB")
+    check(abs(gpu - cpu) < 0.1, f"{what}: card SNR differs from the CPU run")
+    return gpu, cpu
+
+
+def phase_k5(x: np.ndarray, card: str) -> dict:
+    """Phase 7: K5 against its plain version, its times, and the filterbank
+    path. x [B, 2, T] float32. Returns K5's entry of the kernels line."""
+    import torch
+
+    from tac_torch import codec, filterbank
+    from tac_torch.config import PRESETS
+    from tac_torch.dsp import mdct as fb
+    from tac_torch.dsp.window import sine_window
+    from tac_torch.ops import mdct_fused as k5
+
+    dev = torch.device("cuda")
+    cfg = PRESETS["stereo44-128"]
+    h = cfg.n_mdct_lines
+    xd = torch.as_tensor(x, device=dev)
+    basis = codec.make_consts(cfg, dev).fwd_basis
+    rng = np.random.default_rng(5)
+
+    def k5_case(name, sig, h_, basis_):
+        got = k5.mdct_frames_fused(sig, h_, basis_)
+        torch.cuda.synchronize()
+        want = k5.mdct_frames_plain(sig, h_, basis_)
+        check(got.shape == want.shape, f"K5 {name} shape {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        tol = 5e-6 * float(want.abs().max())
+        print(f"  K5 {name}: {tuple(sig.shape)} -> {tuple(got.shape)} "
+              f"max_abs_err {err:.3e} (tolerance {tol:.3e})")
+        check(err <= tol, f"K5 {name} differs from its plain version")
+        return err, tol
+
+    def sine_basis(h_):
+        return torch.as_tensor(fb.mdct_basis(h_, sine_window(2 * h_)), device=dev)
+
+    with torch.no_grad():
+        err, tol = k5_case("path shape, H = 1024", xd, h, basis)
+        times = {}
+        for h_ in (256, 128):                     # the block-switch transforms
+            b_ = sine_basis(h_)
+            k5_case(f"H = {h_}", xd, h_, b_)
+            times[h_] = cuda_ms(lambda: k5.mdct_frames_fused(xd, h_, b_), 10)
+        noise = torch.as_tensor(rng.standard_normal((2, 256 * 24 + 123)),
+                                dtype=torch.float32, device=dev)
+        k5_case("T off the hop", noise, 256, sine_basis(256))
+        k5_case("F = 5 mono", noise[:1, :256 * 3 + 1].contiguous(), 256,
+                sine_basis(256))
+        k5_case("h = 64 under the tile", noise, 64, sine_basis(64))
+
+        ms = cuda_ms(lambda: k5.mdct_frames_fused(xd, h, basis), 10)
+        plain_ms = cuda_ms(lambda: k5.mdct_frames_plain(xd, h, basis), 10)
+        frames_ms = cuda_ms(lambda: fb.frame_signal(xd, h) @ basis, 10)
+        frames = fb.frame_signal(xd, h)
+        gemm_ms = cuda_ms(lambda: frames @ basis, 10)
+        n_fr = frames.shape[-2]
+        del frames
+
+        # ---- the filterbank path: counter zeroed just before, read just after
+        t = x.shape[-1]
+        filterbank.mdct_synthesis(filterbank.mdct_analysis(xd, cfg), cfg, t)
+        torch.cuda.synchronize()
+        k5.mdct_frames_fused.launches = 0
+        lines, ana_ms = timed(lambda: filterbank.mdct_analysis(xd, cfg))
+        y, syn_ms = timed(lambda: filterbank.mdct_synthesis(lines, cfg, t))
+        launches = k5.mdct_frames_fused.launches
+    print(f"filterbank path launches: {{'mdct_fused': {launches}}}")
+    check(launches > 0, "K5 was never launched on the filterbank path")
+    check(tuple(lines.shape) == (*x.shape[:2], n_fr, h)
+          and tuple(y.shape) == x.shape and bool(torch.isfinite(y).all()),
+          "filterbank path shapes / finite")
+    y = y.cpu().numpy()
+    snrs = [snr_db(x[i].astype(np.float64), y[i].astype(np.float64))
+            for i in range(len(x))]
+    # two f32 products with sums of 2h and h terms taken in sequence: the
+    # relative error grows to about eps * sqrt(2h), -111 dB at h = 1024
+    check(min(snrs) > 110.0, f"filterbank round trip {min(snrs):.1f} dB")
+    audio_s = x.shape[0] * x.shape[-1] / cfg.sample_rate
+    print(json.dumps({"mdct_path": {
+        "config": "stereo44-128 filterbank (sine window, H = 1024)",
+        "clips": x.shape[0], "channels": x.shape[0] * x.shape[1], "frames": n_fr,
+        "analysis_ms": ana_ms, "synthesis_ms": syn_ms,
+        "audio_s_per_s_device": audio_s / ((ana_ms + syn_ms) / 1e3),
+        "round_trip_snr_db_min": min(snrs), "round_trip_snr_db_max": max(snrs),
+        "launches": {"mdct_fused": launches}, "card": card}}))
+
+    rows = x.shape[0] * x.shape[1] * n_fr
+    b5, b5_by = bound(4 * (xd.numel() + basis.numel() + rows * h),
+                      2 * rows * 2 * h * h)
+    # library_ms: the one PyTorch call of the same function, the plain
+    # version's matmul on the unfolded view (PyTorch copies the overlapping
+    # rows, then cuBLAS sgemm); library_frames_ms builds the frame matrix
+    # with frame_signal first; library_gemm_ms is the sgemm alone on frames
+    # that already exist
+    return {"name": "mdct_fused", "route": "cuda",
+            "source": "tac_torch/csrc/mdct_fused.cu",
+            "replaces": "tac/ops/pallas_mdct.py:70", "launches": launches,
+            "ok": True, "max_abs_err": err, "tolerance": tol, "ms": ms,
+            "ms_h256": times[256], "ms_h128": times[128], "plain_ms": plain_ms,
+            "bound_ms": b5, "bound_by": b5_by, "library_ms": plain_ms,
+            "library_frames_ms": frames_ms, "library_gemm_ms": gemm_ms}
+
+
+def phase_block_switch(xs: np.ndarray, card: str) -> dict:
+    """Phases 8 and 9: the block-switch kernel checks and both block-switch
+    paths on the switching material xs [B, 2, T]. Returns per kernel the
+    launches of each path, the worst error and the times at these shapes."""
+    import torch
+
+    from tac_torch import api, bitalloc, codec
+    from tac_torch import blockswitch as bsw
+    from tac_torch.config import PRESETS
+    from tac_torch.ops import alloc as k1
+    from tac_torch.ops import bitpack
+    from tac_torch.ops import huffdec as k4
+    from tac_torch.ops import pack as k2
+    from tac_torch.ops import vbr_scan as k3
+
+    dev = torch.device("cuda")
+    cfg_c = PRESETS["vbr-bs"]
+    cfg_b = cfg_c.replace(use_huffman=False)
+    clips, t = xs.shape[0], xs.shape[-1]
+    audio_s = clips * t / cfg_b.sample_rate
+    xsd = torch.as_tensor(xs, device=dev)
+    x0 = xs[0].T[: 2 * cfg_b.sample_rate]
+    counters = {"water_fill": k1.water_fill_rows,
+                "scatter_words": k2.scatter_words_rows,
+                "vbr_scan": k3.vbr_reservoir_scan,
+                "huffdec": k4.huffman_decode_rows}
+    ch = codec.ENC_CHUNK
+
+    def zero_counters():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def per_chunk(fn, *ts):
+        chunks = list(zip(*(t_.split(ch) for t_ in ts)))
+        return lambda: [fn(*c_) for c_ in chunks]
+
+    def drive(cfg, enc, dec, what):
+        """Batched device encode and decode (CUDA events), then the entry
+        points per clip; counters zeroed just before, read just after."""
+        enc(xsd, cfg, dev)                                  # warm
+        zero_counters()
+        (words, nbits), enc_ms = timed(lambda: enc(xsd, cfg, dev))
+        y_batch, dec_ms = timed(lambda: dec(words, cfg, t, dev))
+        t0 = time.perf_counter()
+        streams = [api.encode_array(xs[i].T, cfg) for i in range(clips)]
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = [api.decode_array(s_, "fast")[0] for s_ in streams]
+        t_dec = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        print(f"{what} path launches: {launches}")
+        snrs = decode_checks(xs, decoded, what)
+        # a batched decode against a solo decode of the same words (clip 0):
+        # f32 IMDCT matmuls of two batch shapes, within 1e-5
+        y0 = dec(words[0], cfg, t, dev)
+        check(float((y0 - y_batch[0]).abs().max()) < 1e-5,
+              f"batched {what} decode differs from the solo decode of the "
+              "same words")
+        snr_batch = decode_checks(xs, y_batch.cpu().numpy().swapaxes(1, 2),
+                                  f"batched {what}")
+        gpu_snr, cpu_snr = card_vs_cpu(x0, cfg, what)
+        prof = profile_device(lambda: enc(xsd, cfg, dev))
+        return words, launches, prof, {
+            "clips": clips, "clip_seconds": t / cfg.sample_rate, "rows": rows,
+            "device_encode_ms": enc_ms, "device_decode_ms": dec_ms,
+            "audio_s_per_s_device": audio_s / (enc_ms / 1e3),
+            "audio_s_per_s_device_decode": audio_s / (dec_ms / 1e3),
+            "audio_s_per_s_full_encode": audio_s / t_enc,
+            "audio_s_per_s_full_decode": audio_s / t_dec,
+            "state_share": state_share, "clips_switching": clips_switching,
+            "launches": launches, "snr_db": snrs,
+            "snr_db_batched": snr_batch, "clip0_2s_snr_card": gpu_snr,
+            "clip0_2s_snr_cpu": cpu_snr,
+            "stream_bytes": sum(len(s_) for s_ in streams), "card": card}
+
+    # ---- 8. material, window states, K1 / K2 at the block-switch shapes
+    cb = bsw.make_bs_consts(cfg_b, dev)
+    with torch.no_grad():
+        frames, states = bsw._frames_and_states(xsd, cfg_b, cb, dev)
+        n_fr = frames.shape[-2]
+        rows = states.numel()
+        state_share = (torch.bincount(states.reshape(-1).long(), minlength=4)
+                       .float() / rows).tolist()
+        clips_switching = int((states == bsw.SHORT).reshape(clips, -1).any(-1)
+                              .sum().item())
+        print(f"window states (LONG, START, SHORT, STOP) over {rows} frames: "
+              f"{[round(v, 4) for v in state_share]}; {clips_switching} of "
+              f"{clips} clips hold a SHORT frame")
+        check(min(state_share) > 0, "a window state never occurs in the material")
+        check(state_share[bsw.SHORT] >= 0.02,
+              f"SHORT share {state_share[bsw.SHORT]:.4f} under 2 %")
+
+        smr_q, nl_rows, fields = [], [], []
+        for fr, st in zip(frames.reshape(rows, -1).split(ch),
+                          states.reshape(-1).split(ch)):
+            ll, sl, ls, ss = bsw.analyze_frame_bs(fr, st, cfg_b, cb)
+            smr = bsw.select_by_state(st, sl, ss)
+            nl = bsw.state_n_lines(st, cb)
+            bc = bsw.quantize_both(ll, ls, bsw.allocate_rows_bs(smr, nl, cfg_b, cb),
+                                   st, cfg_b, cb)
+            smr_q.append(bitalloc.snap_smr(smr).float())
+            nl_rows.append(nl)
+            fields.append(bitpack.field_words(
+                *bsw.payload_fields_bs(bc, cfg_b, cb))[:3])
+        del frames, ll, sl, ls, ss, bc
+        smr_q = torch.cat(smr_q).contiguous()
+        nl_rows = torch.cat(nl_rows).contiguous()
+        c0, c1, word0 = (torch.cat(f_).contiguous() for f_ in zip(*fields))
+        del fields
+        budgets = torch.full((rows,), cb.cl.budget, dtype=torch.int32, device=dev)
+        w32_b = -(-bsw.capacity_bits_bs(cfg_b) // 32)
+        print(f"bs: {rows} rows x {smr_q.shape[1]} bands (per-row widths), "
+              f"{c0.shape[1]} fields, W32 = {w32_b}, budget {cb.cl.budget}")
+        k1_err = worst_err(k1.water_fill_rows(smr_q, nl_rows, budgets),
+                           k1.water_fill_rows_plain(smr_q, nl_rows, budgets))
+        print(f"  K1 bs smr, per-row n_lines {tuple(nl_rows.shape)}: "
+              f"max_abs_err {k1_err}")
+        check(k1_err == 0, "K1 differs from its plain version at bs shapes")
+        k2_err = worst_err(k2.scatter_words_rows(c0, c1, word0, w32=w32_b),
+                           k2.scatter_words_rows_plain(c0, c1, word0, w32=w32_b))
+        print(f"  K2 bs fields: {tuple(c0.shape)} -> W32 {w32_b} "
+              f"max_abs_err {k2_err}")
+        check(k2_err == 0, "K2 differs from its plain version at bs shapes")
+        k1_bs_ms = cuda_ms(per_chunk(lambda s_, n_, b_: k1.water_fill_rows(s_, n_, b_),
+                                     smr_q, nl_rows, budgets), 50)
+        k1_bs_one_ms = cuda_ms(lambda: k1.water_fill_rows(smr_q, nl_rows, budgets),
+                               50)
+        k2_bs_ms = cuda_ms(per_chunk(
+            lambda a, b, w: k2.scatter_words_rows(a, b, w, w32=w32_b),
+            c0, c1, word0), 50)
+        del c0, c1, word0, smr_q, nl_rows
+
+        _, launches_b, prof_b, path_b = drive(
+            cfg_b, bsw.encode_clip_bs_packed, bsw.decode_clip_bs_packed, "bs")
+    check(launches_b["water_fill"] > 0 and launches_b["scatter_words"] > 0,
+          "a kernel of the bs path was never launched")
+    print(json.dumps({"profile_bs": {"what": "one batched bs device encode",
+                                     **prof_b}}))
+    print(json.dumps({"bs_path": {"config": "vbr-bs without Huffman, fast",
+                                  **path_b}}))
+
+    # ---- 9. the combo: K3 with per-frame n_lines, K2 at 2 101 fields, K4
+    cc = bsw.make_bs_consts(cfg_c, dev)
+    lanes = rows // n_fr
+    base, cap_res = cc.cl.budget, cfg_c.reservoir_factor * cc.cl.budget
+    w32_c = -(-bsw.capacity_bits_bs_vbr(cfg_c) // 32)
+    with torch.no_grad():
+        frames, states = bsw._frames_and_states(xsd, cfg_c, cc, dev)
+        st_lanes = states.reshape(lanes, n_fr)
+        ll, ls, smr_fl, bh_fl = bsw._bs_vbr_phase1(
+            frames.reshape(lanes, n_fr, -1), st_lanes, cfg_c, cc)
+        del frames
+        smr_fl = bitalloc.snap_smr(smr_fl).float().contiguous()
+        nl_fl = bsw.state_n_lines(st_lanes.transpose(0, 1), cc)
+        res0 = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        print(f"bs x vbr: {lanes} lanes x {n_fr} frames x {smr_fl.shape[2]} "
+              f"bands, n_lines {tuple(nl_fl.shape)}, base {base}, cap "
+              f"{cap_res}, W32 = {w32_c}")
+        k3_got = k3.vbr_reservoir_scan(smr_fl, bh_fl, nl_fl, res0, base=base,
+                                       cap=cap_res)
+        k3_want, k3_plain_ms = timed(lambda: k3.vbr_reservoir_scan_plain(
+            smr_fl, bh_fl, nl_fl, res0, base=base, cap=cap_res))
+        k3_err = worst_err(k3_got, k3_want)
+        print(f"  K3 bs x vbr run, per-frame n_lines: max_abs_err {k3_err}")
+        check(k3_err == 0, "K3 differs from its plain version at combo shapes")
+        k3_ms = cuda_ms(lambda: k3.vbr_reservoir_scan(
+            smr_fl, bh_fl, nl_fl, res0, base=base, cap=cap_res), 5, warmup=1)
+        bc = bsw.quantize_both(
+            ll[:ch], ls[:ch], k3_got[0].transpose(0, 1).reshape(rows, -1)[:ch],
+            st_lanes.reshape(-1)[:ch], cfg_c, cc)
+        c0, c1, word0 = bitpack.field_words(*bsw.payload_fields_bs_vbr(
+            bc, k3_got[1].transpose(0, 1).reshape(rows)[:ch], cfg_c, cc))[:3]
+        k2c_err = worst_err(k2.scatter_words_rows(c0, c1, word0, w32=w32_c),
+                            k2.scatter_words_rows_plain(c0, c1, word0, w32=w32_c))
+        print(f"  K2 bs x vbr chunk fields: {tuple(c0.shape)} -> W32 {w32_c} "
+              f"max_abs_err {k2c_err}")
+        check(k2c_err == 0, "K2 differs from its plain version at combo shapes")
+        del ll, ls, smr_fl, bh_fl, nl_fl, bc, c0, c1, word0, k3_got, k3_want
+
+        words, launches_c, prof_c, path_c = drive(
+            cfg_c, bsw.encode_clip_bs_vbr_packed, bsw.decode_clip_bs_vbr_packed,
+            "bs x vbr")
+        check(all(launches_c[k_] > 0
+                  for k_ in ("scatter_words", "vbr_scan", "huffdec")),
+              "a kernel of the bs x vbr path was never launched")
+
+        # K4 on the combo encode's words, m_line from the state-selected map
+        wf = words.reshape(-1, w32_c).contiguous()
+        _, _, tid, _, _, m_line, mant_start = bsw._bs_vbr_head(wf, cfg_c, cc)
+        tid_share = (torch.bincount(tid.long(), minlength=4).float()
+                     / tid.numel()).tolist()
+        sets_present = [sid for sid in range(1, len(cc.cl.huff) + 1)
+                        if tid_share[sid] > 0]
+        check(bool(sets_present), "no Huffman-coded frame in the bs x vbr run")
+        k4_err, k4_ms = 0, 0.0
+        for sid in sets_present:
+            hc = cc.cl.huff[sid - 1]
+            err = worst_err(k4.huffman_decode_rows(wf, mant_start, m_line, hc),
+                            k4.huffman_decode_rows_plain(wf, mant_start, m_line, hc))
+            print(f"  K4 bs x vbr run, set {sid}: words {tuple(wf.shape)} "
+                  f"max_abs_err {err}")
+            check(err == 0, "K4 differs from its plain version at combo shapes")
+            k4_err = max(k4_err, err)
+            k4_ms += cuda_ms(lambda: k4.huffman_decode_rows(
+                wf, mant_start, m_line, hc), 10)
+    print(json.dumps({"profile_bs_vbr": {
+        "what": "one batched bs x vbr device encode", **prof_c}}))
+    print(json.dumps({"bs_vbr_path": {
+        "config": "vbr-bs fast", "lanes": lanes, "frames": n_fr,
+        "tid_share": tid_share, "sets_walked": sets_present, **path_c}}))
+    return {
+        "water_fill": {"launches_bs_path": launches_b["water_fill"],
+                       "max_abs_err": k1_err, "ms_bs_path": k1_bs_ms,
+                       "ms_bs_one_launch": k1_bs_one_ms},
+        "scatter_words": {"launches_bs_path": launches_b["scatter_words"],
+                          "launches_bs_vbr_path": launches_c["scatter_words"],
+                          "max_abs_err": max(k2_err, k2c_err),
+                          "ms_bs_path": k2_bs_ms},
+        "vbr_scan": {"launches_bs_vbr_path": launches_c["vbr_scan"],
+                     "max_abs_err": k3_err, "ms_bs_vbr_path": k3_ms,
+                     "plain_ms_bs_vbr_path": k3_plain_ms},
+        "huffdec": {"launches_bs_vbr_path": launches_c["huffdec"],
+                    "max_abs_err": k4_err, "ms_bs_vbr_path": k4_ms,
+                    "sets_walked_bs_vbr_path": sets_present},
+    }
 
 
 def main() -> int:
@@ -363,19 +767,10 @@ def main() -> int:
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was never launched")
 
-    snrs = []
-    for i, y in enumerate(decoded):
-        check(y.shape == x[i].T.shape and bool(np.isfinite(y).all()),
-              f"clip {i} decode shape/finite")
-        snrs.append(snr_db(x[i].T.astype(np.float64), y.astype(np.float64)))
-    check(min(snrs) > 10.0, f"clip SNR too low: {min(snrs):.2f} dB")
+    snrs = decode_checks(x, decoded, "fixed-rate")
     # card vs the port's CPU run on clip 0, first 2 s
     x0 = x[0].T[: 2 * cfg.sample_rate]
-    gpu_snr = snr_db(x0, api.decode_array(api.encode_array(x0, cfg), "fast")[0])
-    cpu_snr = snr_db(x0, api.decode_array(
-        api.encode_array(x0, cfg, device="cpu"), "fast", device="cpu")[0])
-    print(f"clip 0 (2 s): card SNR {gpu_snr:.4f} dB, CPU SNR {cpu_snr:.4f} dB")
-    check(abs(gpu_snr - cpu_snr) < 0.1, "card SNR differs from the CPU run")
+    gpu_snr, cpu_snr = card_vs_cpu(x0, cfg, "fixed-rate")
 
     prof = profile_device(encode)
     print(json.dumps({"profile": {"what": "one batched device encode", **prof}}))
@@ -603,26 +998,15 @@ def main() -> int:
     check(all(launches_v[k_] > 0 for k_ in ("scatter_words", "vbr_scan", "huffdec")),
           "a kernel of the VBR path was never launched")
 
-    snrs_v = []
-    y_batch = y_batch.cpu().numpy()
-    for i, y in enumerate(decoded_v):
-        check(y.shape == x[i].T.shape and bool(np.isfinite(y).all()),
-              f"VBR clip {i} decode shape/finite")
-        snrs_v.append(snr_db(x[i].T.astype(np.float64), y.astype(np.float64)))
-    check(min(snrs_v) > 10.0, f"VBR clip SNR too low: {min(snrs_v):.2f} dB")
+    snrs_v = decode_checks(x, decoded_v, "VBR")
     # the batched decode against a solo decode of the same words (clip 0);
     # f32 IMDCT matmuls of two batch shapes: within 1e-5
     y0 = codec.decode_clip_vbr_packed(words_v[0], cfg_v, x.shape[-1], dev)
-    check(float((y0.cpu() - torch.as_tensor(y_batch[0])).abs().max()) < 1e-5,
+    check(float((y0 - y_batch[0]).abs().max()) < 1e-5,
           "batched VBR decode differs from the solo decode of the same words")
-    snr_batch = [snr_db(x[i].astype(np.float64), y_batch[i].astype(np.float64))
-                 for i in range(CLIPS)]
-    check(min(snr_batch) > 10.0, f"batched VBR SNR too low: {min(snr_batch):.2f} dB")
-    gpu_snr_v = snr_db(x0, api.decode_array(api.encode_array(x0, cfg_v), "fast")[0])
-    cpu_snr_v = snr_db(x0, api.decode_array(
-        api.encode_array(x0, cfg_v, device="cpu"), "fast", device="cpu")[0])
-    print(f"VBR clip 0 (2 s): card SNR {gpu_snr_v:.4f} dB, CPU SNR {cpu_snr_v:.4f} dB")
-    check(abs(gpu_snr_v - cpu_snr_v) < 0.1, "VBR card SNR differs from the CPU run")
+    snr_batch = decode_checks(x, y_batch.cpu().numpy().swapaxes(1, 2),
+                              "batched VBR")
+    gpu_snr_v, cpu_snr_v = card_vs_cpu(x0, cfg_v, "VBR")
 
     prof_v = profile_device(encode_v)
     print(json.dumps({"profile_vbr": {"what": "one batched VBR device encode",
@@ -640,11 +1024,24 @@ def main() -> int:
         "clip0_2s_snr_card": gpu_snr_v, "clip0_2s_snr_cpu": cpu_snr_v,
         "stream_bytes": sum(len(s_) for s_ in streams_v), "card": card}}))
 
+    # ---- 7-9. K5 and the filterbank path; block switching, both ways
+    del xd, frames, words_v, nbits_v, words, nbits
+    torch.cuda.empty_cache()
+    k5_entry = phase_k5(x, card)
+    bs = phase_block_switch(make_switching_clips(CLIPS, SECONDS, cfg.sample_rate),
+                            card)
+
+    def with_bs(entry: dict) -> dict:
+        """A kernel's entry plus what the block-switch phases measured."""
+        extra = dict(bs[entry["name"]])
+        entry["max_abs_err"] = max(entry["max_abs_err"], extra.pop("max_abs_err"))
+        return {**entry, **extra}
+
     b1, b1_by = bound(k1_bytes, k1_ops)
     b2, b2_by = bound(k2_bytes, k2_ops)
     b3, b3_by = bound(k3_bytes, k3_ops)
     b4, b4_by = bound(k4_bytes, k4_ops)
-    kernels = [
+    kernels = [with_bs(entry) for entry in (
         {"name": "water_fill", "route": "cuda",
          "source": "tac_torch/csrc/water_fill.cu",
          "replaces": "tac/ops/pallas_alloc.py:308",
@@ -678,7 +1075,7 @@ def main() -> int:
          "ms": k4_ms, "ms_per_clip_launch": k4_clip_ms, "sets_walked": sets_present,
          "plain_ms": k4_plain_ms, "bound_ms": b4, "bound_by": b4_by,
          "library_ms": None},
-    ]
+    )] + [k5_entry]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

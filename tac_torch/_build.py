@@ -32,6 +32,7 @@ KERNELS = {
     "scatter_words": ("scatter_words.cu", [], []),
     "vbr_scan": ("vbr_scan.cu", ["-fmad=false"], ["water_fill.cuh"]),
     "huffdec": ("huffdec.cu", [], []),
+    "mdct_fused": ("mdct_fused.cu", [], []),
 }
 
 _loaded: dict = {}

@@ -1,5 +1,5 @@
-"""Public API: audio arrays ⇄ PAC-T bytes (counterpart of tac/api.py for
-fixed-rate and Huffman-VBR L/R streams).
+"""Public API: audio arrays ⇄ PAC-T bytes (counterpart of tac/api.py for L/R
+streams: fixed-rate or Huffman VBR, with or without block switching).
 
 The device pipeline (tac_torch.codec) produces packed payload words; the
 host adds the PAC-T header and the u16-prefixed block framing. Entry points
@@ -13,6 +13,7 @@ import numpy as np
 
 from tac_torch import bands, codec
 from tac_torch import bitstream as bs
+from tac_torch import blockswitch as bsw
 from tac_torch.config import CodecConfig, check_supported
 from tac_torch.dsp.mdct import num_frames
 from tac_torch.ops.bitpack import rows_to_stream, stream_to_rows
@@ -34,18 +35,26 @@ def encode_array(x: np.ndarray, cfg: CodecConfig, device=None) -> bytes:
         cfg = cfg.replace(n_channels=c)
     check_supported(cfg)
     h = cfg.n_mdct_lines
-    enc = (codec.encode_clip_vbr_packed if cfg.use_huffman
-           else codec.encode_clip_packed)
+    if cfg.use_block_switch:
+        enc = (bsw.encode_clip_bs_vbr_packed if cfg.use_huffman
+               else bsw.encode_clip_bs_packed)
+    else:
+        enc = (codec.encode_clip_vbr_packed if cfg.use_huffman
+               else codec.encode_clip_packed)
     words, nbits = enc(x.T, cfg, device)
     # stream order is block-major, channel-minor: [F, C]
     w = words.cpu().numpy().view(np.uint32).swapaxes(0, 1)
     payload = rows_to_stream(w, nbits.cpu().numpy().swapaxes(0, 1))
     hdr = bs.PacHeader(
         sample_rate=cfg.sample_rate, n_channels=c, num_samples=t,
-        bitrate_bps=cfg.bitrate_bps, n_mdct_lines=h, n_mdct_lines_short=0,
+        bitrate_bps=cfg.bitrate_bps, n_mdct_lines=h,
+        n_mdct_lines_short=cfg.n_mdct_lines_short if cfg.use_block_switch else 0,
         n_scale_bits=cfg.n_scale_bits, n_mant_size_bits=cfg.n_mant_size_bits,
         n_lines_long=bands.lines_per_band(cfg.sample_rate, h),
-        n_lines_short=None, huffman=cfg.use_huffman, blockswitch=False, ms=False)
+        n_lines_short=(bands.lines_per_band(cfg.sample_rate,
+                                            cfg.n_mdct_lines_short)
+                       if cfg.use_block_switch else None),
+        huffman=cfg.use_huffman, blockswitch=cfg.use_block_switch, ms=False)
     return bs.write_header(hdr) + payload
 
 
@@ -70,10 +79,17 @@ def decode_array(data: bytes, precision: str = "parity", device=None
     f = num_frames(hdr.num_samples, hdr.n_mdct_lines)
     c = cfg.n_channels
     offs, lens = bs.split_blocks(data, off, f * c)
-    w32 = -(-codec.payload_capacity_bits(cfg) // 32)
+    if hdr.blockswitch:
+        cap = (bsw.capacity_bits_bs_vbr(cfg) if hdr.huffman
+               else bsw.capacity_bits_bs(cfg))
+        dec = (bsw.decode_clip_bs_vbr_packed if hdr.huffman
+               else bsw.decode_clip_bs_packed)
+    else:
+        cap = codec.payload_capacity_bits(cfg)
+        dec = (codec.decode_clip_vbr_packed if hdr.huffman
+               else codec.decode_clip_packed)
+    w32 = -(-cap // 32)
     rows = stream_to_rows(data, offs, lens, w32)           # [F*C, W32]
     words = np.ascontiguousarray(rows.reshape(f, c, w32).swapaxes(0, 1))
-    dec = (codec.decode_clip_vbr_packed if hdr.huffman
-           else codec.decode_clip_packed)
     x = dec(words.view(np.int32), cfg, hdr.num_samples, device)
     return x.cpu().numpy().T.astype(np.float32), hdr.sample_rate

@@ -66,13 +66,23 @@ class FrameCode(NamedTuple):
     mant: torch.Tensor        # [..., H] int32 line mantissas (0 where no bits)
 
 
+def _band_max(x: torch.Tensor, c: CodecConsts, fill) -> torch.Tensor:
+    """Per-band max of x[..., H] → [..., N_BANDS]. Grouped-short consts
+    (band_tile = K sub-blocks, the short band map tiled K times) reduce
+    each sub-block's bands, then over the K sub-blocks."""
+    if c.band_tile == 1:
+        return psy_mod.band_slice_max(x, c.band_ranges, fill)
+    xs = x.reshape(*x.shape[:-1], c.band_tile, -1)
+    return psy_mod.band_slice_max(xs, c.band_ranges, fill).amax(-2)
+
+
 def _smr_input(frames, lines, cfg: CodecConfig, c: CodecConsts):
     """What drives bit allocation (SPEC §5/§6; the four BitAlloc modes)."""
     if cfg.use_psy and cfg.alloc_mode in ("greedy", "const_mnr"):
         return psy_mod.calc_smrs(frames, lines, c.psy)
     if cfg.alloc_mode == "const_snr":
         spl = psy_mod.spl_from_intensity(c.mdct_gain * lines * lines)
-        return psy_mod.band_slice_max(spl, c.band_ranges, float("-inf"))
+        return _band_max(spl, c, float("-inf"))
     return torch.zeros(*lines.shape[:-1], bands.N_BANDS, dtype=c.dtype,
                        device=lines.device)       # uniform
 
@@ -108,7 +118,7 @@ def quantize_given_alloc(lines: torch.Tensor, alloc: torch.Tensor,
     ovs = quant.scale_factor(lines.abs().amax(-1), s, a)
     # 2^ovs is a power-of-two scale: exact in every float format (SPEC §10)
     scaled = lines * torch.exp2(ovs.to(lines.dtype))[..., None]
-    band_max = psy_mod.band_slice_max(scaled.abs(), c.band_ranges, 0.0)
+    band_max = _band_max(scaled.abs(), c, 0.0)
     band_max = torch.where(c.n_lines > 0, band_max, 0.0)
     sf = quant.scale_factor(band_max, s, alloc)
     sf = torch.where(alloc > 0, sf, 0)
@@ -119,26 +129,35 @@ def quantize_given_alloc(lines: torch.Tensor, alloc: torch.Tensor,
                      scale=sf.to(torch.int32), mant=mant)
 
 
-def decode_frame(code: FrameCode, cfg: CodecConfig, c: CodecConsts):
-    """FrameCode [...] → [..., N] windowed time-domain output (pre-OLA)."""
+def dequantize_lines(code: FrameCode, cfg: CodecConfig, c: CodecConsts):
+    """FrameCode [...] → MDCT lines [..., H] under c's line→band map."""
     alloc = ba.code_to_alloc(code.alloc_code)
     m_line = torch.index_select(alloc, -1, c.band_of_line)
     sf_line = torch.index_select(code.scale, -1, c.band_of_line)
     scaled = quant.dequantize_mantissa(code.mant, sf_line, cfg.n_scale_bits,
                                        m_line, c.dtype)
-    lines = scaled * torch.exp2(-code.ovs.to(c.dtype))[..., None]
+    return scaled * torch.exp2(-code.ovs.to(c.dtype))[..., None]
+
+
+def decode_frame(code: FrameCode, cfg: CodecConfig, c: CodecConsts):
+    """FrameCode [...] → [..., N] windowed time-domain output (pre-OLA)."""
+    lines = dequantize_lines(code, cfg, c)
     if cfg.precision == "parity":
         return fb.imdct_fft(lines, lines.shape[-1]) * c.window
     return lines @ c.inv_basis
 
 
-def payload_fields(code: FrameCode, cfg: CodecConfig, c: CodecConsts):
+def payload_fields(code: FrameCode, cfg: CodecConfig, c: CodecConsts,
+                   m_line=None):
     """(vals, wids) field matrices per SPEC.md §7 raw layout:
     ovs | B alloc codes | B scale factors (0-width where alloc=0) |
-    H mantissas (width = band alloc). Leaves [..., NF], NF = 1+2B+H."""
+    H mantissas (width = band alloc). Leaves [..., NF], NF = 1+2B+H.
+    m_line int32[..., H] overrides the per-line widths of c's band map (the
+    block-switch state-selected map)."""
     s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
     alloc = ba.code_to_alloc(code.alloc_code)
-    m_line = torch.index_select(alloc, -1, c.band_of_line)
+    if m_line is None:
+        m_line = torch.index_select(alloc, -1, c.band_of_line)
     vals = torch.cat([code.ovs[..., None], code.alloc_code, code.scale,
                       code.mant], dim=-1)
     wids = torch.cat([torch.full_like(code.ovs[..., None], s),
@@ -191,32 +210,42 @@ def encode_clip_packed(x, cfg: CodecConfig, device=None):
     return words.reshape(*lead, words.shape[-1]), nbits.reshape(lead)
 
 
-def _unpack_raw_fields(wf: torch.Tensor, cfg: CodecConfig,
-                       c: CodecConsts) -> FrameCode:
-    """int32 [K, W32] payload rows → FrameCode [K, ...] (SPEC.md §7 raw
-    layout): fixed-offset head, then cumsum offsets for the scale factors
-    and mantissas."""
+def read_head(wf: torch.Tensor, cfg: CodecConfig, pre: tuple):
+    """The head of int32 [K, W32] payload rows, common to every layout
+    (SPEC.md §7, §9): fixed-width fields of widths `pre` (overall scale;
+    tableId and window state where the layout has them), the B allocation
+    codes, then the scale factors at cumsum offsets. Returns (pre fields
+    int32 [K, len(pre)], alloc_code [K, B], scale [K, B], mant_start int64
+    [K, 1] — the bit offset of the first mantissa)."""
     s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
     nb = bands.N_BANDS
     k = wf.shape[0]
-    dev = wf.device
-    head_off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                          s + a * torch.arange(nb, device=dev)])
-    head_wid = torch.cat([torch.full((1,), s, device=dev),
-                          torch.full((nb,), a, device=dev)])
-    head = read_fields(wf, head_off.expand(k, nb + 1), head_wid.expand(k, nb + 1))
-    ovs, alloc_code = head[:, 0], head[:, 1:]
-    alloc = ba.code_to_alloc(alloc_code)
-
-    sf_w = torch.where(alloc > 0, s, 0).to(torch.int64)
+    wid = torch.tensor([*pre] + [a] * nb, dtype=torch.int64, device=wf.device)
+    off = torch.cumsum(wid, 0) - wid
+    head = read_fields(wf, off.expand(k, -1), wid.expand(k, -1))
+    alloc_code = head[:, len(pre):]
+    sf_w = torch.where(alloc_code > 0, s, 0).to(torch.int64)
     sf_end = torch.cumsum(sf_w, dim=1)
-    sf = read_fields(wf, (s + a * nb) + (sf_end - sf_w), sf_w)
+    first = sum(pre) + a * nb
+    sf = read_fields(wf, first + (sf_end - sf_w), sf_w)
+    return head[:, :len(pre)], alloc_code, sf, first + sf_end[:, -1:]
 
-    m_line = torch.index_select(alloc, 1, c.band_of_line).to(torch.int64)
-    m_end = torch.cumsum(m_line, dim=1)
-    mant = read_fields(wf, (s + a * nb) + sf_end[:, -1:] + (m_end - m_line),
-                       m_line)
-    return FrameCode(ovs=ovs, alloc_code=alloc_code, scale=sf, mant=mant)
+
+def read_raw_mantissas(wf, mant_start, m_line):
+    """Raw mantissas of widths m_line [K, H] from bit mant_start [K, 1] on,
+    by cumsum offsets."""
+    m = m_line.to(torch.int64)
+    return read_fields(wf, mant_start + (torch.cumsum(m, dim=1) - m), m)
+
+
+def _unpack_raw_fields(wf: torch.Tensor, cfg: CodecConfig,
+                       c: CodecConsts) -> FrameCode:
+    """int32 [K, W32] payload rows → FrameCode [K, ...] (SPEC.md §7 raw
+    layout)."""
+    pre, alloc_code, sf, mant_start = read_head(wf, cfg, (cfg.n_scale_bits,))
+    m_line = torch.index_select(ba.code_to_alloc(alloc_code), 1, c.band_of_line)
+    return FrameCode(ovs=pre[:, 0], alloc_code=alloc_code, scale=sf,
+                     mant=read_raw_mantissas(wf, mant_start, m_line))
 
 
 def decode_clip_packed(words, cfg: CodecConfig, t: int, device=None):
@@ -265,13 +294,16 @@ def vbr_mantissa_pairs(mant, m_line, tid, huff: tuple, n_sets: int = 2):
             torch.stack([w0, w1], dim=-1).reshape(shp))
 
 
-def payload_fields_vbr(code: FrameCode, tid, cfg: CodecConfig, c: CodecConsts):
+def payload_fields_vbr(code: FrameCode, tid, cfg: CodecConfig, c: CodecConsts,
+                       m_line=None):
     """(vals, wids) field matrices per SPEC.md §7 huffman layout:
     ovs | 2-bit tableId | B alloc codes | B scale factors | huffman-or-raw
-    mantissa pairs. Leaves [..., NF], NF = 2+2B+2H."""
+    mantissa pairs. Leaves [..., NF], NF = 2+2B+2H. m_line as in
+    ``payload_fields``."""
     s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
     alloc = ba.code_to_alloc(code.alloc_code)
-    m_line = torch.index_select(alloc, -1, c.band_of_line)
+    if m_line is None:
+        m_line = torch.index_select(alloc, -1, c.band_of_line)
     tid = tid.to(torch.int32)
     hv, hw = vbr_mantissa_pairs(code.mant, m_line, tid, c.huff,
                                 cfg.huffman_sets)
@@ -286,10 +318,14 @@ def payload_fields_vbr(code: FrameCode, tid, cfg: CodecConfig, c: CodecConsts):
 
 def _band_sum_int(x: torch.Tensor, c: CodecConsts) -> torch.Tensor:
     """Per-band sum of integer x[..., H] → int64 [..., N_BANDS]: one cumsum,
-    then differences at the band edges (exact for integers)."""
+    then differences at the band edges (exact for integers). Grouped-short
+    consts sum each sub-block's bands, then over the K sub-blocks."""
+    if c.band_tile > 1:
+        x = x.reshape(*x.shape[:-1], c.band_tile, -1)
     cs = torch.nn.functional.pad(x.cumsum(-1), (1, 0))
-    return (torch.index_select(cs, -1, c.band_edges[1])
-            - torch.index_select(cs, -1, c.band_edges[0]))
+    out = (torch.index_select(cs, -1, c.band_edges[1])
+           - torch.index_select(cs, -1, c.band_edges[0]))
+    return out.sum(-2) if c.band_tile > 1 else out
 
 
 def _vbr_band_costs(lines: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
@@ -304,7 +340,7 @@ def _vbr_band_costs(lines: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
     s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
     ovs = quant.scale_factor(lines.abs().amax(-1), s, a)
     scaled = lines * torch.exp2(ovs.to(lines.dtype))[..., None]
-    band_max = psy_mod.band_slice_max(scaled.abs(), c.band_ranges, 0.0)
+    band_max = _band_max(scaled.abs(), c, 0.0)
     band_max = torch.where(c.n_lines > 0, band_max, 0.0)
     cost_tabs = cost_tables(cfg, c)
     outs = [[] for _ in cost_tabs]
@@ -424,27 +460,15 @@ def _huffman_or_raw(wf, mant_start, m_line, tid, mant_raw, huff: tuple):
 
 
 def _vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
-    """The fixed-offset head of int32 [K, W32] VBR payload rows (SPEC.md §7
-    huffman layout) → (ovs [K], tid [K], alloc_code [K, B], scale [K, B],
-    m_line int32 [K, H], mant_start int32 [K]): everything the mantissa
-    read needs, and nothing of the mantissas."""
-    s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
-    nb = bands.N_BANDS
-    k = wf.shape[0]
-    dev = wf.device
-    head_off = torch.cat([torch.tensor([0, s], dtype=torch.int64, device=dev),
-                          s + 2 + a * torch.arange(nb, device=dev)])
-    head_wid = torch.cat([torch.tensor([s, 2], device=dev),
-                          torch.full((nb,), a, device=dev)])
-    head = read_fields(wf, head_off.expand(k, nb + 2), head_wid.expand(k, nb + 2))
-    ovs, tid, alloc_code = head[:, 0], head[:, 1], head[:, 2:]
-    alloc = ba.code_to_alloc(alloc_code)
-    sf_w = torch.where(alloc > 0, s, 0).to(torch.int64)
-    sf_end = torch.cumsum(sf_w, dim=1)
-    sf = read_fields(wf, (s + 2 + a * nb) + (sf_end - sf_w), sf_w)
-    m_line = torch.index_select(alloc, 1, c.band_of_line).contiguous()
-    mant_start = ((s + 2 + a * nb) + sf_end[:, -1]).to(torch.int32)
-    return ovs, tid, alloc_code, sf, m_line, mant_start
+    """The head of int32 [K, W32] VBR payload rows (SPEC.md §7 huffman
+    layout) → (ovs [K], tid [K], alloc_code [K, B], scale [K, B], m_line
+    int32 [K, H], mant_start int32 [K]): everything the mantissa read
+    needs, and nothing of the mantissas."""
+    pre, alloc_code, sf, mant_start = read_head(wf, cfg, (cfg.n_scale_bits, 2))
+    m_line = torch.index_select(ba.code_to_alloc(alloc_code), 1,
+                                c.band_of_line).contiguous()
+    return (pre[:, 0], pre[:, 1], alloc_code, sf, m_line,
+            mant_start[:, 0].to(torch.int32))
 
 
 def _unpack_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
@@ -453,8 +477,7 @@ def _unpack_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
     raw rows' mantissas via cumsum-offset gathers and Huffman rows' via the
     serial decode walk."""
     ovs, tid, alloc_code, sf, m_line, mant_start = _vbr_head(wf, cfg, c)
-    m_end = torch.cumsum(m_line, dim=1)
-    mant_raw = read_fields(wf, mant_start[:, None] + (m_end - m_line), m_line)
+    mant_raw = read_raw_mantissas(wf, mant_start[:, None], m_line)
     mant = _huffman_or_raw(wf, mant_start, m_line, tid, mant_raw, c.huff)
     return FrameCode(ovs=ovs, alloc_code=alloc_code, scale=sf, mant=mant)
 

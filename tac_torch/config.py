@@ -149,15 +149,13 @@ PRESETS = {
 
 
 def check_supported(cfg: CodecConfig) -> None:
-    """Raise for the stream families this package does not code yet (it
-    codes L/R streams without block switching, fixed-rate or Huffman VBR)."""
-    missing = [name for name, on in (("use_block_switch", cfg.use_block_switch),
-                                     ("stereo_mode='ms'",
-                                      cfg.stereo_mode == "ms")) if on]
-    if missing:
+    """Raise for the stream family this package does not code yet: mid/side
+    joint stereo. It codes L/R streams, fixed-rate or Huffman VBR, with or
+    without block switching."""
+    if cfg.stereo_mode == "ms":
         raise NotImplementedError(
-            f"tac_torch codes L/R streams without block switching only; "
-            f"{', '.join(missing)} is not ported yet (use the tac package)")
+            "tac_torch codes L/R streams only; stereo_mode='ms' is not "
+            "ported yet (use the tac package)")
 
 
 def resolve_device(device=None) -> torch.device:

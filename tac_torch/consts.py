@@ -67,6 +67,7 @@ class CodecConsts(NamedTuple):
     budget: int                  # mantissa bits per block/channel
     mdct_gain: float             # 8 / mean(window^2)
     dtype: torch.dtype
+    band_tile: int = 1           # K > 1: grouped shorts, band map tiled K times
 
 
 def _bark_np(f):
@@ -105,7 +106,9 @@ def _dtype(cfg: CodecConfig):
     return np.float64 if cfg.precision == "parity" else np.float32
 
 
-def _psy_arrays(cfg: CodecConfig) -> dict:
+def psy_host_arrays(cfg: CodecConfig) -> dict:
+    """The psy model's constant arrays (PSY_LEAVES) for cfg's transform
+    size, in NumPy (tac/psy.py:make_consts)."""
     h = cfg.n_mdct_lines
     n = 2 * h
     dt = _dtype(cfg)
@@ -157,7 +160,7 @@ def host_arrays(cfg: CodecConfig) -> dict:
         "inv_basis": fb.imdct_basis(h, w, np.float64).astype(dt),
         "band_of_line": bands.band_of_line(cfg.sample_rate, h),
         "n_lines": bands.lines_per_band(cfg.sample_rate, h),
-        "psy": _psy_arrays(cfg) if cfg.use_psy else None,
+        "psy": psy_host_arrays(cfg) if cfg.use_psy else None,
         "huffman": ([hf.host_tables(sid) for sid in range(1, hf.n_sets() + 1)]
                     if cfg.use_huffman else None),
     }
@@ -169,6 +172,31 @@ def _up(a, device, dtype) -> Optional[torch.Tensor]:
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+def psy_from_numpy(cfg: CodecConfig, p: dict, device) -> PsyConsts:
+    """Upload a set of psy constant arrays (PSY_LEAVES) for cfg's transform
+    size to `device`."""
+    dev = torch.device(device)
+    ft = torch.float64 if cfg.precision == "parity" else torch.float32
+    h = cfg.n_mdct_lines
+    n = 2 * h
+    w = window_fn(cfg.window, n, cfg.kbd_alpha)
+    hw = hann_window(n)
+    fl = {k: _up(p[k], dev, ft) for k in PSY_LEAVES
+          if k not in ("band_of_line", "n_lines")}
+    return PsyConsts(
+        fft_gain=float(4.0 / (n * n * np.mean(hw ** 2))),
+        mdct_gain=float(8.0 / np.mean(w ** 2)),
+        band_of_line=_up(p["band_of_line"], dev, torch.int64),
+        n_lines=_up(p["n_lines"], dev, torch.int32),
+        band_ranges=bands.band_line_ranges(cfg.sample_rate, h),
+        max_maskers=cfg.max_maskers,
+        delta_tonal=cfg.delta_tonal_db,
+        delta_noise=cfg.delta_noise_db,
+        noise_maskers=cfg.psy_noise_maskers,
+        band_thresh=band_thresh(cfg),
+        **fl)
+
+
 def consts_from_numpy(cfg: CodecConfig, arrays: dict, device) -> CodecConsts:
     """Upload a set of constant arrays (see ``host_arrays``) to `device`.
     Float leaves take the config's precision; scalar and static fields are
@@ -176,28 +204,9 @@ def consts_from_numpy(cfg: CodecConfig, arrays: dict, device) -> CodecConsts:
     dev = torch.device(device)
     ft = torch.float64 if cfg.precision == "parity" else torch.float32
     h = cfg.n_mdct_lines
-    n = 2 * h
-    w = window_fn(cfg.window, n, cfg.kbd_alpha)
-    mdct_gain = float(8.0 / np.mean(w ** 2))
+    w = window_fn(cfg.window, 2 * h, cfg.kbd_alpha)
     ranges = bands.band_line_ranges(cfg.sample_rate, h)
-    psy = None
     p = arrays.get("psy")
-    if p is not None:
-        hw = hann_window(n)
-        fl = {k: _up(p[k], dev, ft) for k in PSY_LEAVES
-              if k not in ("band_of_line", "n_lines")}
-        psy = PsyConsts(
-            fft_gain=float(4.0 / (n * n * np.mean(hw ** 2))),
-            mdct_gain=mdct_gain,
-            band_of_line=_up(p["band_of_line"], dev, torch.int64),
-            n_lines=_up(p["n_lines"], dev, torch.int32),
-            band_ranges=ranges,
-            max_maskers=cfg.max_maskers,
-            delta_tonal=cfg.delta_tonal_db,
-            delta_noise=cfg.delta_noise_db,
-            noise_maskers=cfg.psy_noise_maskers,
-            band_thresh=band_thresh(cfg),
-            **fl)
     return CodecConsts(
         window=_up(arrays["window"], dev, ft),
         fwd_basis=_up(arrays["fwd_basis"], dev, ft),
@@ -207,10 +216,10 @@ def consts_from_numpy(cfg: CodecConfig, arrays: dict, device) -> CodecConsts:
         band_ranges=ranges,
         band_edges=torch.tensor(ranges, dtype=torch.int64, device=dev).T
         .contiguous(),
-        psy=psy,
+        psy=psy_from_numpy(cfg, p, dev) if p is not None else None,
         huff=(tuple(hf.device_tables(t, dev) for t in arrays["huffman"])
               if arrays.get("huffman") else None),
         budget=frame_budget(cfg, h),
-        mdct_gain=mdct_gain,
+        mdct_gain=float(8.0 / np.mean(w ** 2)),
         dtype=ft,
     )

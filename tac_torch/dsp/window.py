@@ -2,7 +2,6 @@
 
 Windows are static constants of a config: built on the host in NumPy f64
 and uploaded once with the other constants (tac_torch/consts.py).
-Transition windows arrive with block switching.
 """
 
 from __future__ import annotations
@@ -41,3 +40,22 @@ def window_fn(name: str, n: int, kbd_alpha: float = 4.0) -> np.ndarray:
     if name == "kbd":
         return kbd_window(n, kbd_alpha)
     raise ValueError(f"unknown window {name!r}")
+
+
+def transition_windows(n_long: int, n_short: int, name: str = "sine",
+                       kbd_alpha: float = 4.0):
+    """START / STOP hybrid windows for block switching (SPEC.md §9).
+
+    START rises like the long window over [0, H_long), stays flat for
+    (H_long - H_short) / 2 samples, falls with the short window's second
+    half so that it TDAC-overlaps the first short block, then is zero; STOP
+    is its time reverse. Returns (start, stop), each of length n_long."""
+    h_long, h_short = n_long // 2, n_short // 2
+    wl = window_fn(name, n_long, kbd_alpha)
+    ws = window_fn(name, n_short, kbd_alpha)
+    flat = (h_long - h_short) // 2
+    start = np.ones(n_long, dtype=np.float64)
+    start[:h_long] = wl[:h_long]
+    start[h_long + flat:h_long + flat + h_short] = ws[h_short:]
+    start[h_long + flat + h_short:] = 0.0
+    return start, start[::-1].copy()

@@ -25,8 +25,7 @@ _NEG = -1e30  # "minus infinity" that stays finite in f32
 
 def make_consts(cfg: CodecConfig, device) -> PsyConsts:
     """The config's psy constants on `device` (tac/psy.py:make_consts)."""
-    cfg = cfg.replace(use_psy=True)
-    return consts.consts_from_numpy(cfg, consts.host_arrays(cfg), device).psy
+    return consts.psy_from_numpy(cfg, consts.psy_host_arrays(cfg), device)
 
 
 # ------------------------------------------------------- scalar formulas ----
@@ -204,17 +203,22 @@ def masked_threshold_bands(time_frame: torch.Tensor, c: PsyConsts) -> torch.Tens
 
 
 def calc_smrs(time_frame: torch.Tensor, mdct_lines: torch.Tensor,
-              c: PsyConsts) -> torch.Tensor:
+              c: PsyConsts, mdct_gain=None) -> torch.Tensor:
     """SMR per scale-factor band. time_frame [..., N], mdct_lines [..., H]
-    → [..., N_BANDS]; empty bands get a large negative."""
+    → [..., N_BANDS]; empty bands get a large negative.
+
+    mdct_gain [...] overrides the window-power gain 8/mean(w^2) per frame:
+    the block-switch START / STOP windows carry other power than the long
+    window (SPEC.md §9)."""
+    gain = c.mdct_gain if mdct_gain is None else mdct_gain[..., None]
     if c.band_thresh:
         thr_spl = spl_from_intensity(masked_threshold_bands(time_frame, c))
         lines = mdct_lines.to(thr_spl.dtype)
-        line_spl = spl_from_intensity(c.mdct_gain * (lines * lines))
+        line_spl = spl_from_intensity(gain * (lines * lines))
         smr = band_slice_max(line_spl, c.band_ranges, _NEG) - thr_spl
     else:
         thr_spl = spl_from_intensity(masked_threshold(time_frame, c))
         lines = mdct_lines.to(thr_spl.dtype)
-        line_spl = spl_from_intensity(c.mdct_gain * (lines * lines))
+        line_spl = spl_from_intensity(gain * (lines * lines))
         smr = band_slice_max(line_spl - thr_spl, c.band_ranges, _NEG)
     return torch.where(c.n_lines > 0, smr, _NEG)

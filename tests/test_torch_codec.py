@@ -151,12 +151,12 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [{"use_huffman": True, "stereo_mode": "ms"},
-                                    {"use_block_switch": True},
+                                    {"use_block_switch": True,
+                                     "stereo_mode": "ms"},
                                     {"stereo_mode": "ms"}])
 def test_unported_stream_families_raise(change):
-    """Block switching and mid/side (fixed-rate or VBR) are not ported:
-    encode and decode raise NotImplementedError instead of taking another
-    path."""
+    """Mid/side (fixed-rate, VBR or block-switched) is not ported: encode
+    and decode raise NotImplementedError instead of taking another path."""
     cfg = TPRESETS["stereo44-128"].replace(**change)
     with pytest.raises(NotImplementedError):
         tapi.encode_array(np.zeros((4096, 2)), cfg, device="cpu")

@@ -1,7 +1,8 @@
-"""Kernels K1-K4 on an NVIDIA GPU against their plain PyTorch versions
-(exact: allocations, words, reservoir decisions and mantissas are
-integers), including the constructed row where a fused multiply-add would
-flip a water-fill decision.
+"""Kernels K1-K5 on an NVIDIA GPU against their plain PyTorch versions
+(K1-K4 exact: allocations, words, reservoir decisions and mantissas are
+integers; K5 within 5e-6 of the largest line), including the constructed
+row where a fused multiply-add would flip a water-fill decision, and the
+block-switch paths end to end.
 
 Marked `cuda`; run on a machine with a card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -19,6 +20,7 @@ from tac_torch.config import PRESETS
 from tac_torch.ops import alloc as tk1
 from tac_torch.ops import bitpack as tbp
 from tac_torch.ops import huffdec as tk4
+from tac_torch.ops import mdct_fused as tk5
 from tac_torch.ops import pack as tk2
 from tac_torch.ops import vbr_scan as tk3
 
@@ -47,7 +49,7 @@ def _k1_both(dev, smr, nl, budgets, max_mant=16):
 
 
 @pytest.mark.parametrize("case", ["random", "budgets", "ties", "joint",
-                                  "per_row", "max_mant"])
+                                  "per_row", "bs_widths", "max_mant"])
 def test_k1_kernel_equals_plain(dev, case):
     rng = np.random.default_rng(7)
     smr = tba.snap_smr(torch.tensor(rng.normal(10, 25, (3000, 25)))).numpy()
@@ -63,6 +65,11 @@ def test_k1_kernel_equals_plain(dev, case):
         nl, budgets = np.concatenate([NL, NL]), np.full(3000, 2564)
     elif case == "per_row":
         nl = rng.integers(0, 60, (3000, 25))
+    elif case == "bs_widths":
+        # the block-switch path: long and grouped-short (K = 8) widths mixed
+        short = 8 * bands.lines_per_band(44100, 128)
+        nl, budgets = (np.where(rng.random((3000, 1)) < 0.3, short, NL),
+                       np.full(3000, 1280))
     elif case == "max_mant":
         mm = 9
     got, want = _k1_both(dev, smr, nl, budgets, mm)
@@ -241,3 +248,88 @@ def test_vbr_round_trip_runs_k2_k3_k4(dev):
         return 10 * np.log10(np.mean(a ** 2) / np.mean((a - b) ** 2))
 
     assert abs(snr(x, y) - snr(x, y_cpu)) < 0.1
+
+
+@pytest.mark.parametrize("channels,h,t", [(2, 256, 256 * 24), (2, 256, 256 * 24 + 123),
+                                          (2, 1024, 1024 * 24 + 57),
+                                          (1, 256, 256 * 3 + 1), (3, 128, 5000),
+                                          (2, 64, 1000), (5, 1024, 40000)])
+def test_k5_kernel_equals_plain(dev, channels, h, t):
+    """K5 against its plain version within 5e-6 · max|ref| (two f32 sums over
+    2h terms): T off the hop, F = 5 mono, h below the kernel's 128-line
+    tile, and row tiles that cross channels."""
+    from tac_torch.dsp import mdct as tm
+    from tac_torch.dsp.window import sine_window
+
+    rng = np.random.default_rng(h + t)
+    basis = torch.tensor(tm.mdct_basis(h, sine_window(2 * h)), device=dev)
+    x = torch.tensor(rng.standard_normal((channels, t)).astype(np.float32),
+                     device=dev)
+    before = tk5.mdct_frames_fused.launches
+    got = tk5.mdct_frames_fused(x, h, basis)
+    assert tk5.mdct_frames_fused.launches == before + 1
+    want = tk5.mdct_frames_plain(x, h, basis)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (channels, tm.num_frames(t, h), h)
+    assert float((got - want).abs().max()) <= 5e-6 * float(want.abs().max())
+
+
+def test_k5_refuses_bad_arguments(dev):
+    x = torch.zeros((2, 1000), device=dev)
+    with pytest.raises(ValueError):
+        tk5.mdct_frames_fused(x, 6, torch.zeros((12, 6), device=dev))
+    with pytest.raises(ValueError):
+        tk5.mdct_frames_fused(x, 8, torch.zeros((16, 8)))
+    with pytest.raises(ValueError):
+        tk5.mdct_frames_fused(x.double(), 8, torch.zeros((16, 8), device=dev))
+
+
+def _strike_clip(seconds, fs=44100):
+    rng = np.random.default_rng(4)
+    n = int(fs * seconds)
+    t = np.arange(n) / fs
+    x = np.stack([0.3 * np.sin(2 * np.pi * 330 * (c + 1) * t)
+                  + 0.01 * rng.standard_normal(n) for c in range(2)], 1)
+    k = np.arange(800)
+    burst = 0.5 * np.exp(-k / 100.0) * np.sin(2 * np.pi * 3000 * k / fs)
+    for pos in range(fs // 7, n - 900, fs // 5):
+        x[pos:pos + 800] += burst[:, None]
+    return x
+
+
+@pytest.mark.parametrize("huffman", [False, True])
+def test_bs_round_trip_runs_its_kernels(dev, huffman):
+    """encode_array → bytes → decode_array on the block-switch configs at
+    full width launches K1 + K2 (fixed rate) or K2 + K3 + K4 (the combo),
+    and the card's stream decodes like the CPU's."""
+    from tac_torch import api
+
+    x = _strike_clip(1.0)
+    cfg = PRESETS["vbr-bs"].replace(use_huffman=huffman)
+    counts = ([tk2.scatter_words_rows, tk3.vbr_reservoir_scan,
+               tk4.huffman_decode_rows] if huffman
+              else [tk1.water_fill_rows, tk2.scatter_words_rows])
+    before = [c.launches for c in counts]
+    data = api.encode_array(x, cfg, device=dev)
+    y = api.decode_array(data, "fast", device=dev)[0]
+    assert all(c.launches > b for c, b in zip(counts, before))
+    y_cpu = api.decode_array(api.encode_array(x, cfg, device="cpu"), "fast",
+                             device="cpu")[0]
+
+    def snr(a, b):
+        return 10 * np.log10(np.mean(a ** 2) / np.mean((a - b) ** 2))
+
+    assert abs(snr(x, y) - snr(x, y_cpu)) < 0.1
+
+
+def test_filterbank_path_runs_k5(dev):
+    from tac_torch import filterbank
+
+    cfg = PRESETS["stereo44-128"]
+    x = _strike_clip(1.0).T.astype(np.float32)
+    before = tk5.mdct_frames_fused.launches
+    lines = filterbank.mdct_analysis(x, cfg, device=dev)
+    assert tk5.mdct_frames_fused.launches == before + 1
+    y = filterbank.mdct_synthesis(lines, cfg, x.shape[1], device=dev).cpu().numpy()
+    # f32 sums of 2 048 terms in sequence: about eps * sqrt(2048), -111 dB
+    assert 10 * np.log10(np.mean(x ** 2) / np.mean((x - y) ** 2)) > 110.0
