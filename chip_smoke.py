@@ -25,15 +25,17 @@ Phases, each of which fails the run (non-zero exit) on error:
      table set present) equal their plain versions exactly, plus small
      cases (one and three sets, forced ties, per-frame n_lines, a resumed
      chain, 50 joint bands, the FMA row; sizes outside [2, 8], escapes,
-     walks past the payload, a stalling table);
+     walks past the payload, a stalling table); the plain K3 run counts
+     the chain's greedy-loop trips per frame;
   6. VBR path: PRESETS["vbr-huffman"] (fast) on the same clips — batched
      device encode and decode (CUDA events), then encode_array → bytes →
      decode_array per clip, counters zeroed before and read after (K2, K3
      and K4 must have launched), SNRs, card vs CPU on clip 0, the share of
      frames by tableId, one encode under torch.profiler;
-  7. K5 (fused framing + MDCT) against its plain version within
-     5e-6 * max|ref| at 32 channels x 647 frames x (2048 -> 1024), at the
-     block-switch transforms' sizes H = 256 and 128, and at F = 5 mono;
+  7. K5 (fused framing + MDCT, split-TF32 on the tensor cores) against its
+     plain version within 5e-6 * max|ref| at 32 channels x 647 frames x
+     (2048 -> 1024), at the block-switch transforms' sizes H = 256 and 128,
+     at F = 5 mono, h = 64, h = 4 and T under one hop (err / tol printed);
      then the filterbank path: 16 x 15 s stereo -> mdct_analysis (K5) ->
      mdct_synthesis (IMDCT matmul, overlap-add), round-trip SNR over 110 dB
      (f32 sums of 2 048 terms);
@@ -66,6 +68,7 @@ import numpy as np
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # CUDA cores, outside the tensor cores
+TF32_OPS_PER_S = 495e12         # tensor cores, dense
 
 CLIPS, SECONDS = 16, 15.0
 # A row whose decision flips under a fused multiply-add: with n_lines
@@ -209,9 +212,10 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def bound(nbytes: float, nops: float):
-    """The least time the card could take, in ms, and what sets it."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
+    """The least time the card could take, in ms, and what sets it: the
+    bytes at the memory rate or the operations at `ops_per_s`."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -268,6 +272,7 @@ def phase_k5(x: np.ndarray, card: str) -> dict:
     xd = torch.as_tensor(x, device=dev)
     basis = codec.make_consts(cfg, dev).fwd_basis
     rng = np.random.default_rng(5)
+    ratios = []                                   # err / tol of every case
 
     def k5_case(name, sig, h_, basis_):
         got = k5.mdct_frames_fused(sig, h_, basis_)
@@ -277,8 +282,10 @@ def phase_k5(x: np.ndarray, card: str) -> dict:
         err = float((got - want).abs().max())
         tol = 5e-6 * float(want.abs().max())
         print(f"  K5 {name}: {tuple(sig.shape)} -> {tuple(got.shape)} "
-              f"max_abs_err {err:.3e} (tolerance {tol:.3e})")
+              f"max_abs_err {err:.3e} (tolerance {tol:.3e}, "
+              f"err / tol {err / tol:.4f})")
         check(err <= tol, f"K5 {name} differs from its plain version")
+        ratios.append(err / tol)
         return err, tol
 
     def sine_basis(h_):
@@ -293,10 +300,12 @@ def phase_k5(x: np.ndarray, card: str) -> dict:
             times[h_] = cuda_ms(lambda: k5.mdct_frames_fused(xd, h_, b_), 10)
         noise = torch.as_tensor(rng.standard_normal((2, 256 * 24 + 123)),
                                 dtype=torch.float32, device=dev)
-        k5_case("T off the hop", noise, 256, sine_basis(256))
-        k5_case("F = 5 mono", noise[:1, :256 * 3 + 1].contiguous(), 256,
-                sine_basis(256))
-        k5_case("h = 64 under the tile", noise, 64, sine_basis(64))
+        for case in (("T off the hop", noise, 256),
+                     ("F = 5 mono", noise[:1, :256 * 3 + 1].contiguous(), 256),
+                     ("h = 64 under the tile", noise, 64),
+                     ("h = 4, under the 32-sample step", noise, 4),
+                     ("T under one hop", noise[:, :100].contiguous(), 256)):
+            k5_case(*case, sine_basis(case[2]))
 
         ms = cuda_ms(lambda: k5.mdct_frames_fused(xd, h, basis), 10)
         plain_ms = cuda_ms(lambda: k5.mdct_frames_plain(xd, h, basis), 10)
@@ -335,8 +344,12 @@ def phase_k5(x: np.ndarray, card: str) -> dict:
         "launches": {"mdct_fused": launches}, "card": card}}))
 
     rows = x.shape[0] * x.shape[1] * n_fr
-    b5, b5_by = bound(4 * (xd.numel() + basis.numel() + rows * h),
-                      2 * rows * 2 * h * h)
+    flops = 2 * rows * 2 * h * h
+    # the route's bound: three TF32 products of the split operands at the
+    # tensor cores' TF32 peak (a full-f32 design's would be the f32 peak)
+    b5, b5_by = bound(4 * (xd.numel() + basis.numel() + rows * h), 3 * flops,
+                      TF32_OPS_PER_S)
+    b5_f32, _ = bound(4 * (xd.numel() + basis.numel() + rows * h), flops)
     # library_ms: the one PyTorch call of the same function, the plain
     # version's matmul on the unfolded view (PyTorch copies the overlapping
     # rows, then cuBLAS sgemm); library_frames_ms builds the frame matrix
@@ -345,10 +358,17 @@ def phase_k5(x: np.ndarray, card: str) -> dict:
     return {"name": "mdct_fused", "route": "cuda",
             "source": "tac_torch/csrc/mdct_fused.cu",
             "replaces": "tac/ops/pallas_mdct.py:70", "launches": launches,
-            "ok": True, "max_abs_err": err, "tolerance": tol, "ms": ms,
+            "ok": True,
+            "design": "split-TF32 wgmma (3 products), TMA ring, f32 promotion "
+                      "per 32 samples",
+            "max_abs_err": err, "tolerance": tol, "err_over_tol": err / tol,
+            "err_over_tol_worst_case": max(ratios), "ms": ms,
+            "tflops": flops / (ms * 1e-3) / 1e12,
             "ms_h256": times[256], "ms_h128": times[128], "plain_ms": plain_ms,
-            "bound_ms": b5, "bound_by": b5_by, "library_ms": plain_ms,
-            "library_frames_ms": frames_ms, "library_gemm_ms": gemm_ms}
+            "bound_ms": b5, "bound_by": b5_by, "bound_ms_f32_cuda_cores": b5_f32,
+            "library_ms": plain_ms, "library_frames_ms": frames_ms,
+            "library_gemm_ms": gemm_ms,
+            "filterbank_snr_db_min": min(snrs)}
 
 
 def phase_block_switch(xs: np.ndarray, card: str) -> dict:
@@ -512,8 +532,10 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
               f"{cap_res}, W32 = {w32_c}")
         k3_got = k3.vbr_reservoir_scan(smr_fl, bh_fl, nl_fl, res0, base=base,
                                        cap=cap_res)
+        k1.water_fill_rows_plain.trips = 0
         k3_want, k3_plain_ms = timed(lambda: k3.vbr_reservoir_scan_plain(
             smr_fl, bh_fl, nl_fl, res0, base=base, cap=cap_res))
+        k3_trips = k1.water_fill_rows_plain.trips / (lanes * n_fr)
         k3_err = worst_err(k3_got, k3_want)
         print(f"  K3 bs x vbr run, per-frame n_lines: max_abs_err {k3_err}")
         check(k3_err == 0, "K3 differs from its plain version at combo shapes")
@@ -572,6 +594,8 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
                           "ms_bs_path": k2_bs_ms},
         "vbr_scan": {"launches_bs_vbr_path": launches_c["vbr_scan"],
                      "max_abs_err": k3_err, "ms_bs_vbr_path": k3_ms,
+                     "us_per_frame_bs_vbr_path": k3_ms * 1e3 / n_fr,
+                     "trips_per_frame_bs_vbr_path": k3_trips,
                      "plain_ms_bs_vbr_path": k3_plain_ms},
         "huffdec": {"launches_bs_vbr_path": launches_c["huffdec"],
                     "max_abs_err": k4_err, "ms_bs_vbr_path": k4_ms,
@@ -814,6 +838,10 @@ def main() -> int:
         check(err == 0, f"K3 {name} differs from its plain version")
         return err, got, plain_ms
 
+    # the plain run of the comparison counts the chain's greedy-loop trips
+    # after the warm start (grants + freezes, over all lanes and frames)
+    k1.water_fill_rows_plain.trips = 0
+
     def k3_inputs(f_, l_, nl_np, sets):
         nb_ = len(nl_np)
         s_ = bitalloc.snap_smr(torch.as_tensor(
@@ -831,6 +859,7 @@ def main() -> int:
     with torch.no_grad():
         k3_err, k3_out, k3_plain_ms = k3_case("vbr run", smr_fl, bh_fl, nl, res0_v,
                                               base_v, cap_v)
+        k3_trips = k1.water_fill_rows_plain.trips / (lanes * n_fr)
         zeros4 = torch.zeros(4, dtype=torch.int32, device=dev)
         for sets in (1, 3):
             s_, bh_ = k3_inputs(8, 4, nl_np, sets)
@@ -1063,9 +1092,14 @@ def main() -> int:
         {"name": "vbr_scan", "route": "cuda",
          "source": "tac_torch/csrc/vbr_scan.cu",
          "replaces": "tac/ops/pallas_vbr_scan.py:191",
-         "launches": launches_v["vbr_scan"], "ok": True, "max_abs_err": k3_err,
-         "ms": k3_ms, "ms_per_clip_launch": k3_clip_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": b3, "bound_by": b3_by, "library_ms": None},
+         "launches": launches_v["vbr_scan"], "ok": True,
+         "design": "rows by cp.async ring, DEC in a register, one-reduce grant, "
+                   "1 x 12 warm start",
+         "max_abs_err": k3_err, "ms": k3_ms, "ms_per_clip_launch": k3_clip_ms,
+         "us_per_frame": k3_ms * 1e3 / n_fr, "trips_per_frame": k3_trips,
+         "us_per_trip": k3_ms * 1e3 / (n_fr * k3_trips),
+         "plain_ms": k3_plain_ms, "bound_ms": b3, "bound_by": b3_by,
+         "library_ms": None},
         # ms: the batched VBR decode's launches, one per table set present,
         # each over all 20 704 rows; plain_ms likewise, one run per set
         {"name": "huffdec", "route": "cuda",

@@ -15,7 +15,8 @@
 // whole chain in registers (water_fill.cuh); each warp leaves its loop as
 // soon as its own row converges (the TPU kernel looped to the batch max),
 // and four rows per 128-thread block keep enough warps resident to hide
-// the shuffle latency.
+// the shuffle latency. The band slots per lane are a template parameter
+// (one slot at the 25-band rows), and the warm start keeps tac's K1 setting.
 //
 // Compiled with -fmad=false (see water_fill.cuh on exactness).
 
@@ -26,7 +27,10 @@ namespace {
 using namespace tac_wf;
 
 constexpr int kRowsPerBlock = 4;   // warps per block
+constexpr int kRounds = 2;         // warm start: tac's K1 setting,
+constexpr int kBisect = 20;        // 2 rounds x 20 bisection steps
 
+template <int Slots>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 water_fill_kernel(const float* __restrict__ smr, const int* __restrict__ nl,
                   const int* __restrict__ rem0, int* __restrict__ out,
@@ -35,15 +39,17 @@ water_fill_kernel(const float* __restrict__ smr, const int* __restrict__ nl,
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;                     // warp-uniform exit
 
-  float s[kSlots];
-  int n[kSlots], a[kSlots];
-  bool valid[kSlots];
-  load_row(smr + (size_t)row * nb, nl + (size_t)row * nl_stride, nb, lane, s, n,
-           valid);
-  water_fill_row(s, n, valid, rem0[row], nb, max_mant, lane, a);
+  const float dec = load_dec(lane);
+  float s[Slots];
+  int n[Slots], a[Slots];
+  bool valid[Slots];
+  load_row<Slots>(smr + (size_t)row * nb, nl + (size_t)row * nl_stride, nb,
+                  lane, s, n, valid);
+  water_fill_row<Slots, kRounds, kBisect>(s, n, valid, rem0[row], nb, max_mant,
+                                          lane, dec, a);
 
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
+  for (int k = 0; k < Slots; ++k) {
     const int b = k * 32 + lane;
     if (b < nb) out[(size_t)row * nb + b] = a[k];
   }
@@ -65,11 +71,13 @@ extern "C" int tac_water_fill_rows(const float* smr, const int* nl,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nb < 1 || nb > 32 * kSlots || max_mant < 1 || max_mant > kMantMax)
+  if (nb < 1 || nb > 128 || max_mant < 1 || max_mant > kMantMax)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  water_fill_kernel<<<blocks, 32 * kRowsPerBlock, 0, st>>>(
-      smr, nl, rem0, out, rows, nb, nl_stride, max_mant);
+  auto kernel = nb <= 32 ? water_fill_kernel<1>
+              : nb <= 64 ? water_fill_kernel<2> : water_fill_kernel<4>;
+  kernel<<<blocks, 32 * kRowsPerBlock, 0, st>>>(smr, nl, rem0, out, rows, nb,
+                                                nl_stride, max_mant);
   return (int)cudaGetLastError();
 }

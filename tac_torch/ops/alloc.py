@@ -76,14 +76,19 @@ def _warm_start(smr, nl, valid, rem, dec, m_cap: int, rounds: int = 2,
 
 
 def water_fill_rows_plain(smr_q: torch.Tensor, n_lines: torch.Tensor,
-                          budgets: torch.Tensor, *, max_mant: int = MANT_MAX
-                          ) -> torch.Tensor:
+                          budgets: torch.Tensor, *, max_mant: int = MANT_MAX,
+                          rounds: int = 2, n_bisect: int = 20) -> torch.Tensor:
     """Plain PyTorch K1: the decision chain of warm_start_tile +
     water_fill_tile, batched over rows, in smr_q's float type (f32 for the
     fast path, f64 for parity).
 
     smr_q [R, B] grid-snapped SMRs; n_lines int [B] or [R, B]; budgets
-    int [R]. Returns int32 [R, B] allocations."""
+    int [R]. Returns int32 [R, B] allocations. ``rounds`` × ``n_bisect`` is
+    the warm start (K1's 2 × 20 by default; K3 runs 1 × 12; 0 rounds is a
+    cold start): the allocations are the same at any setting, only the
+    number of loop trips differs. Every call adds its rows' loop trips
+    (grants + freezes after the warm start) to
+    ``water_fill_rows_plain.trips``."""
     r, nb = smr_q.shape
     dev = smr_q.device
     max_mant = min(max_mant, MANT_MAX)
@@ -93,9 +98,10 @@ def water_fill_rows_plain(smr_q: torch.Tensor, n_lines: torch.Tensor,
     valid = nl > 0
     band = torch.arange(nb, device=dev)
     alloc, rem = _warm_start(smr_q, nl, valid, budgets.to(torch.int64)[:, None],
-                             dec, max_mant)
+                             dec, max_mant, rounds, n_bisect)
     frozen = torch.zeros_like(valid)
     mm = torch.arange(max_mant, device=dev)
+    trips = torch.zeros((), dtype=torch.int64, device=dev)
     while True:
         need = smr_q - dec[alloc]
         eligible = ~frozen & (alloc < max_mant) & valid & (nl <= rem)
@@ -127,14 +133,19 @@ def water_fill_rows_plain(smr_q: torch.Tensor, n_lines: torch.Tensor,
         f_alloc = torch.where(fhot, 0, alloc)
         f_rem = rem + torch.where(fhot, nl, 0).sum(-1, keepdim=True)
         f_frozen = frozen | fhot
-        if not bool((any_grant | any_lone).any()):
+        active = any_grant | any_lone
+        if not bool(active.any()):
+            water_fill_rows_plain.trips += int(trips)
             return alloc.to(torch.int32)
+        trips += active.sum()
         alloc = torch.where(any_grant, g_alloc,
                             torch.where(any_lone, f_alloc, alloc))
         rem = torch.where(any_grant, g_rem, torch.where(any_lone, f_rem, rem))
         frozen = torch.where(any_grant, frozen,
                              torch.where(any_lone, f_frozen, frozen))
 
+
+water_fill_rows_plain.trips = 0
 
 _dec_filled: set = set()      # (entry name, device) whose DEC table is filled
 

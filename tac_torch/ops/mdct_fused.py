@@ -8,10 +8,13 @@ with xp the signal padded as ``frame_signal`` pads it (h zeros in front, to
 (F+1)·h samples). The frame matrix, in which every sample appears twice, is
 never built: the kernel reads its left operand straight from the padded
 signal, as a matrix whose rows start h apart. The CUDA source is
-tac_torch/csrc/mdct_fused.cu (a shared-memory tiled f32 GEMM on the CUDA
-cores: full f32, no TF32 rounding); ``mdct_frames_plain`` is the same
-function in plain PyTorch — an unfolded view of the padded signal times
-the basis — and is what the wrapper runs for tensors on the CPU.
+tac_torch/csrc/mdct_fused.cu: the product runs on the tensor cores
+(``wgmma``, fed by TMA) in full f32 accuracy by the 3×TF32 split — each
+operand is its TF32 part plus the exact f32 remainder (``split_tf32``), and
+three TF32 products, smallest first, share one f32 accumulator.
+``mdct_frames_plain`` is the same function in plain PyTorch — an unfolded
+view of the padded signal times the basis — and is what the wrapper runs
+for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -38,9 +41,20 @@ def mdct_frames_plain(x: torch.Tensor, h: int,
     return pad_signal(x, h).unfold(-1, 2 * h, h) @ basis
 
 
+def split_tf32(v: torch.Tensor):
+    """f32 v → (big, small) with big = v rounded to TF32 (10 mantissa bits,
+    to nearest, ties away from zero: PTX ``cvt.rna.tf32.f32``, what the
+    kernel's pre-pass does to the signal) and small = v − big, exact in f32.
+    The kernel takes the basis split here, once per call."""
+    v = v.contiguous()
+    big = ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    return big, v - big
+
+
 def _lib():
     fn = _build.load("mdct_fused").tac_mdct_frames_fused
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,15 +83,21 @@ def mdct_frames_fused(x: torch.Tensor, h: int,
                          f"{tuple(basis.shape)} for h = {h}")
     if x.dim() < 1 or x.shape[-1] < 1:
         raise ValueError("mdct_frames_fused: x must be [..., T] with T >= 1")
-    f = num_frames(x.shape[-1], h)
+    t = x.shape[-1]
+    f = num_frames(t, h)
     lead = x.shape[:-1]
-    xp = pad_signal(x, h).reshape(-1, (f + 1) * h).contiguous()
-    out = torch.empty((xp.shape[0], f, h), dtype=torch.float32, device=x.device)
-    if xp.shape[0] == 0:
+    x2 = x.reshape(-1, t).contiguous()
+    c = x2.shape[0]
+    out = torch.empty((c, f, h), dtype=torch.float32, device=x.device)
+    if c == 0:
         return out.reshape(*lead, f, h)
-    if xp.data_ptr() % 16 or basis.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("mdct_frames_fused: tensors must be 16-byte aligned")
-    err = _lib()(xp.data_ptr(), basis.data_ptr(), out.data_ptr(), xp.shape[0],
+    # the padded, split signal (the kernel's pre-pass writes it: the copy
+    # pad_signal makes on the CPU path) and the split basis, K-major:
+    # bt[half, n, k] = basis[half·h + k, n]
+    xh = torch.empty((2, c * (f + 1) * h), dtype=torch.float32, device=x.device)
+    bt_big, bt_small = split_tf32(basis.reshape(2, h, h).transpose(1, 2))
+    err = _lib()(x2.data_ptr(), xh[0].data_ptr(), xh[1].data_ptr(),
+                 bt_big.data_ptr(), bt_small.data_ptr(), out.data_ptr(), c, t,
                  f, h, x.device.index or 0,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:

@@ -14,7 +14,8 @@ each trained table set, banks what it saved, and hands the fill on:
     res   = clamp(res + base − used, 0, cap)
 
 The CUDA source is tac_torch/csrc/vbr_scan.cu (one warp per lane, the
-frame loop inside the kernel, sharing water_fill.cuh with K1);
+frame loop inside the kernel, each frame's rows copied into shared memory
+frames ahead of the chain, sharing water_fill.cuh with K1);
 ``vbr_reservoir_scan_plain`` is the same chain in plain PyTorch, a Python
 loop over frames, and is what the wrapper runs for tensors on the CPU.
 """
@@ -31,6 +32,10 @@ from tac_torch.ops.alloc import (MANT_MAX, MAX_BANDS, fill_dec_table,
                                  water_fill_rows_plain)
 
 MAX_SETS = 3           # tableId is two bits: raw + three trained sets
+# K3's warm start, as tac's K3 runs it (tac/ops/pallas_vbr_scan.py): one
+# round of 12 bisection steps; the chain's integers are the same at any
+# setting, and the kernel and its plain version take the same steps
+WARM_ROUNDS, WARM_BISECT = 1, 12
 
 
 def vbr_price(alloc: torch.Tensor, bits_huf: torch.Tensor,
@@ -59,7 +64,9 @@ def vbr_reservoir_scan_plain(smr_q: torch.Tensor, bits_huf: torch.Tensor,
 
     smr_q [F, L, B] grid-snapped SMRs, frame-major; bits_huf int
     [F, L, B, 7·S]; n_lines int [B] or [F, L, B]; res0 int [L]. Returns
-    (alloc int32 [F, L, B], tid, used, res int32 [F, L])."""
+    (alloc int32 [F, L, B], tid, used, res int32 [F, L]). The water-fill
+    runs with K3's warm start, and its loop trips add to
+    ``water_fill_rows_plain.trips``."""
     f, lanes, nb = smr_q.shape
     dev = smr_q.device
     res = res0.to(torch.int64)
@@ -69,7 +76,8 @@ def vbr_reservoir_scan_plain(smr_q: torch.Tensor, bits_huf: torch.Tensor,
     for i in range(f):
         nl = n_lines if n_lines.dim() == 1 else n_lines[i]
         alloc = water_fill_rows_plain(smr_q[i], nl, base + res,
-                                      max_mant=max_mant)
+                                      max_mant=max_mant, rounds=WARM_ROUNDS,
+                                      n_bisect=WARM_BISECT)
         raw, hufs = vbr_price(alloc, bits_huf[i], nl)
         best, tid_h = hufs[:, 0], torch.ones_like(raw)
         for si in range(1, hufs.shape[1]):

@@ -185,3 +185,43 @@ def test_k1_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         tk1.water_fill_rows(smr.to("meta"), torch.zeros(129, dtype=torch.int32),
                             torch.zeros(2, dtype=torch.int32))
+
+
+def _warm_cases(rng):
+    """(name, smr_q, n_lines, budgets, max_mant) of the K1 cases above."""
+    ties = np.stack([np.zeros(len(NL)), np.full(len(NL), 90.0),
+                     np.full(len(NL), -90.0),
+                     np.r_[np.full(5, 50.0), np.full(len(NL) - 5, -50.0)]])
+    nl2 = np.concatenate([NL, NL])
+    return [
+        ("random", _snap(rng.normal(10, 25, (64, len(NL)))), NL,
+         rng.choice([0, 5, 12, 600, 1282, 5000], 64), 16),
+        ("ties_and_extremes", _snap(ties), NL, np.full(4, 1282), 16),
+        ("joint_50_bands", _snap(rng.normal(10, 25, (16, 50))), nl2,
+         np.full(16, 2 * 1282), 16),
+        ("fma_row", np.array([[22.924339294433594, 89.14434051513672]],
+                             np.float32), np.array([1, 2]), np.array([24]), 16),
+        ("per_row_n_lines", _snap(rng.normal(10, 25, (24, len(NL)))),
+         rng.integers(0, 60, (24, len(NL))), np.full(24, 700), 9),
+    ]
+
+
+@pytest.mark.parametrize("rounds,n_bisect", [(1, 12), (0, 0)])
+def test_plain_k1_warm_start_setting_is_decision_exact(rng, rounds, n_bisect):
+    """tac's prefix lemma (tac/ops/pallas_vbr_scan.py, tac/bitalloc.py): the
+    allocation is the same after a warm start of 2 × 20 (K1's), 1 × 12 (K3's)
+    or none at all; only the loop's trip count changes, and it never falls
+    as the warm start gets shorter. Kernel K3 relies on this."""
+    for name, smr_q, nl, budgets, mm in _warm_cases(rng):
+        args = (torch.tensor(smr_q), torch.as_tensor(nl, dtype=torch.int32),
+                torch.as_tensor(budgets, dtype=torch.int32))
+        t0 = tk1.water_fill_rows_plain.trips
+        ref = tk1.water_fill_rows_plain(*args, max_mant=mm)
+        t1 = tk1.water_fill_rows_plain.trips
+        got = tk1.water_fill_rows_plain(*args, max_mant=mm, rounds=rounds,
+                                        n_bisect=n_bisect)
+        t2 = tk1.water_fill_rows_plain.trips
+        np.testing.assert_array_equal(got.numpy(), ref.numpy(), err_msg=name)
+        assert t2 - t1 >= t1 - t0, name
+        if name == "fma_row":
+            np.testing.assert_array_equal(got.numpy(), [[2, 11]])

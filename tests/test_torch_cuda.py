@@ -169,6 +169,29 @@ def test_k3_fma_row(dev):
     np.testing.assert_array_equal(want[0], [[[2, 11]]])
 
 
+@pytest.mark.parametrize("case", ["b50", "b100", "lanes33"])
+def test_k3_slot_templates_and_lanes(dev, case):
+    """K3 at 50 and 100 bands (the 2- and 4-slot chains; K1's 4-slot chain
+    beside it) and at 33 lanes. (A chain resumed across two launches from a
+    nonzero res0 is test_k3_kernel_equals_plain's res0 case.)"""
+    rng = np.random.default_rng(13)
+    f, lanes, nl, base, cap = 9, 5, NL, 700, 2800
+    if case in ("b50", "b100"):
+        k = 2 if case == "b50" else 4
+        nl = np.concatenate([NL] * k)
+        base, cap = k * 700, k * 2800
+    elif case == "lanes33":
+        lanes = 33
+    smr, bh = _k3_inputs(rng, f, lanes, nl, 2)
+    got, want = _k3_both(dev, smr, bh, nl, np.zeros(lanes), base, cap)
+    for g, w, what in zip(got, want, ["alloc", "tid", "used", "res"]):
+        np.testing.assert_array_equal(g, w, err_msg=f"{case}: {what}")
+    if case == "b100":
+        rows = tba.snap_smr(torch.tensor(rng.normal(10, 25, (500, 100)))).numpy()
+        k1_got, k1_want = _k1_both(dev, rows, nl, np.full(500, 4 * 1282))
+        np.testing.assert_array_equal(k1_got, k1_want)
+
+
 def _k4_both(dev, words, mant_start, m_line, hc):
     args = (torch.as_tensor(words, dtype=torch.int32, device=dev).contiguous(),
             torch.as_tensor(mant_start, dtype=torch.int32, device=dev),
@@ -268,6 +291,24 @@ def test_k5_kernel_equals_plain(dev, channels, h, t):
     before = tk5.mdct_frames_fused.launches
     got = tk5.mdct_frames_fused(x, h, basis)
     assert tk5.mdct_frames_fused.launches == before + 1
+    want = tk5.mdct_frames_plain(x, h, basis)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (channels, tm.num_frames(t, h), h)
+    assert float((got - want).abs().max()) <= 5e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("channels,h,t", [(2, 4, 1000), (3, 256, 100), (1, 64, 1)])
+def test_k5_small_transforms_and_short_signals(dev, channels, h, t):
+    """K5 at h = 4 (far under the kernel's 128-line tile and 32-sample
+    step) and on signals shorter than one hop (F = 2)."""
+    from tac_torch.dsp import mdct as tm
+    from tac_torch.dsp.window import sine_window
+
+    rng = np.random.default_rng(h * t)
+    basis = torch.tensor(tm.mdct_basis(h, sine_window(2 * h)), device=dev)
+    x = torch.tensor(rng.standard_normal((channels, t)).astype(np.float32),
+                     device=dev)
+    got = tk5.mdct_frames_fused(x, h, basis)
     want = tk5.mdct_frames_plain(x, h, basis)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (channels, tm.num_frames(t, h), h)

@@ -97,3 +97,76 @@ def test_filterbank_path_round_trip(monkeypatch):
         filterbank.mdct_analysis(x, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         filterbank.mdct_synthesis(lines, cfg, 5000)
+
+
+def _rna_tf32_reference(v: np.ndarray) -> np.ndarray:
+    """TF32 rounding of f32 values in float64 arithmetic: 11 significant
+    bits, to nearest, ties away from zero (zeros and subnormals included)."""
+    v64 = v.astype(np.float64)
+    mag = np.abs(v64)
+    e = np.floor(np.log2(np.where(mag > 0, mag, 1.0)))
+    e = np.maximum(e, -126)                        # subnormals: fixed ulp
+    ulp = np.exp2(e - 10)
+    return (np.sign(v64) * np.floor(mag / ulp + 0.5) * ulp).astype(np.float32)
+
+
+def test_split_tf32_is_round_to_nearest_and_exact():
+    """K5's operand split: big has its low 13 mantissa bits zero and is v
+    rounded to TF32 as PTX cvt.rna does (ties away from zero), and
+    big + small == v exactly in f32."""
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal(4000).astype(np.float32) * np.float32(
+        10.0) ** rng.integers(-30, 30, 4000).astype(np.float32)
+    bits = base.view(np.uint32)
+    ties = ((bits & ~np.uint32(0x1FFF)) | np.uint32(0x1000)).view(np.float32)
+    special = np.array([0.0, -0.0, 1.0, -1.0, 1e-40, -3e-39, 3.4e38, 1.0 + 2 ** -11,
+                        1.0 + 3 * 2 ** -11], np.float32)
+    v = np.concatenate([base, ties, special])
+    big, small = tk5.split_tf32(torch.tensor(v))
+    big, small = big.numpy(), small.numpy()
+    assert not (big.view(np.uint32) & np.uint32(0x1FFF)).any()
+    np.testing.assert_array_equal(big, _rna_tf32_reference(v))
+    np.testing.assert_array_equal(big + small, v)
+    # ties go away from zero: 1 + 2^-11 -> 1 + 2^-10, 1 + 3·2^-11 -> 1 + 2^-9
+    np.testing.assert_array_equal(big[-2:], np.float32([1 + 2 ** -10, 1 + 2 ** -9]))
+
+
+def _three_term_tf32(frames: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """The kernel's product emulated in plain torch: both operands split,
+    the small parts read by the tensor core with their low 13 bits cut (the
+    worst a TF32 read can do to them), three f32 products summed smallest
+    first."""
+    def cut(t):
+        return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    fb, fs = tk5.split_tf32(frames)
+    bb, bs = tk5.split_tf32(basis)
+    return (cut(fs) @ bb + fb @ cut(bs)) + fb @ bb
+
+
+@pytest.mark.parametrize("what,h", [("stereo clip 2 s", 1024), ("white noise", 256)])
+def test_split_tf32_product_keeps_full_f32_accuracy(what, h):
+    """The 3×TF32 product stays within K5's gate (5e-6 · max|ref|) of the
+    f32 product, with a margin: under 1e-6 · max|ref|, on a 2-s harmonic
+    stereo clip at h = 1024 and on white noise at h = 256."""
+    rng = np.random.default_rng(h)
+    if what == "white noise":
+        x = rng.standard_normal((2, 44100)).astype(np.float32)
+    else:
+        t = np.arange(2 * 44100) / 44100
+        sig = sum(a * np.sin(2 * np.pi * 440 * k * t)
+                  for k, a in [(1, 0.4), (2, 0.2), (3, 0.1), (7, 0.03)])
+        x = np.stack([sig, 0.8 * sig + 0.02 * rng.standard_normal(len(t))])
+        x = x.astype(np.float32)
+    basis = torch.tensor(tm.mdct_basis(h, sine_window(2 * h)), dtype=torch.float32)
+    frames = tk5.pad_signal(torch.tensor(x), h).unfold(-1, 2 * h, h)
+    ref = frames @ basis
+    got = _three_term_tf32(frames, basis)
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-6, err
+    assert err <= 5e-6
+    # one TF32 pass misses the gate: the split is what keeps full accuracy
+    fb, _ = tk5.split_tf32(frames)
+    bb, _ = tk5.split_tf32(basis)
+    one = float((fb @ bb - ref).abs().max()) / float(ref.abs().max())
+    assert one > 5e-6, one

@@ -18,6 +18,7 @@ from tac.ops.pallas_vbr_scan import vbr_reservoir_scan as pallas_scan
 from tac_torch import bitalloc as tba
 from tac_torch import codec as tc
 from tac_torch.config import PRESETS as TPRESETS
+from tac_torch.ops import alloc as tk1
 from tac_torch.ops import vbr_scan as tk3
 
 NL = bands.lines_per_band(44100, 1024)
@@ -57,6 +58,8 @@ def _tac_scan(smr, bh, nl, res0, base, cap):
 
 
 def _tac_kernel(smr, bh, nl, res0, base, cap):
+    """tac's Pallas kernel in interpret mode, with tac's loop-shape settings
+    from the environment (TAC_WF_PREFIX etc.; see _case_env)."""
     out = pallas_scan(jba.snap_smr(jnp.asarray(smr, jnp.float32)),
                       jnp.asarray(bh), jnp.asarray(nl), jnp.asarray(res0),
                       base=base, cap=cap, max_mant=16, nb=smr.shape[-1],
@@ -94,10 +97,23 @@ def _case(name, rng):
     return smr, bh, nl, np.zeros(3, np.int32), 700, 2800
 
 
+def _case_env(name, monkeypatch):
+    """tac's kernel runs its defaults for random_7x3 (and the resume test on
+    the same shape) and no straight-line loop prefix (TAC_WF_PREFIX=0) for
+    the other cases. tac documents the prefix as decision-exact at any value
+    (tac/ops/pallas_vbr_scan.py: post-fixpoint body applications are the
+    identity); its 12 unrolled copies of the loop body are what makes an
+    interpret-mode trace and compile cost about 4 s per shape here, so both
+    loop shapes are compared and each further shape costs half as much."""
+    if name != "random_7x3":
+        monkeypatch.setenv("TAC_WF_PREFIX", "0")
+
+
 @pytest.mark.parametrize("name", ["random_7x3", "per_frame_n_lines",
                                   "joint_50_bands", "two_sets_ties",
                                   "three_sets"])
-def test_plain_k3_equals_tac_scan_and_kernel(name, rng):
+def test_plain_k3_equals_tac_scan_and_kernel(name, rng, monkeypatch):
+    _case_env(name, monkeypatch)
     args = _case(name, rng)
     got = _port_plain(*args)
     for ref in (_tac_scan(*args), _tac_kernel(*args)):
@@ -167,3 +183,32 @@ def test_reservoir_chain_parity_and_uniform(rng):
         for g, r, what in zip(out, ref, NAMES):
             np.testing.assert_array_equal(g.numpy(), np.asarray(r),
                                           err_msg=f"{change}: {what}")
+
+
+@pytest.mark.parametrize("rounds,n_bisect", [(2, 20), (0, 0)])
+def test_plain_k3_warm_start_setting_is_decision_exact(rng, monkeypatch,
+                                                       rounds, n_bisect):
+    """The chain's integers are the same with K3's warm start (1 × 12, tac's
+    K3 setting), K1's 2 × 20 and a cold start, on the random, per-frame
+    n_lines, joint 50-band and FMA-row chains: the kernel relies on tac's
+    claim that the setting is decision-exact. The trip counter shows the
+    setting really changed the walk."""
+    fma = (np.array([[[22.924339294433594, 89.14434051513672]]], np.float32),
+           np.zeros((1, 1, 2, 7), np.int32), np.array([1, 2], np.int32),
+           np.zeros(1, np.int32), 24, 96)
+    cases = [_case(n, rng) for n in ("random_7x3", "per_frame_n_lines",
+                                     "joint_50_bands")] + [fma]
+    trips = {}
+    for setting in ((tk3.WARM_ROUNDS, tk3.WARM_BISECT), (rounds, n_bisect)):
+        monkeypatch.setattr(tk3, "WARM_ROUNDS", setting[0])
+        monkeypatch.setattr(tk3, "WARM_BISECT", setting[1])
+        t0 = tk1.water_fill_rows_plain.trips
+        trips[setting] = [_port_plain(*c) for c in cases]
+        trips[setting].append(tk1.water_fill_rows_plain.trips - t0)
+    (ref, ref_trips), (got, got_trips) = (
+        (v[:-1], v[-1]) for v in trips.values())
+    for i, (r, g) in enumerate(zip(ref, got)):
+        for rr, gg, what in zip(r, g, NAMES):
+            np.testing.assert_array_equal(gg, rr, err_msg=f"case {i}: {what}")
+    np.testing.assert_array_equal(got[-1][0], [[[2, 11]]])
+    assert got_trips != ref_trips
