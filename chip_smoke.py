@@ -21,12 +21,14 @@ Phases, each of which fails the run (non-zero exit) on error:
      of the port's own CPU run; then one encode under torch.profiler
      (device time by kernel, idle share);
   5. VBR kernel checks at the VBR run's shapes: K3 (reservoir chain, 32
-     lanes x 647 frames) and K4 (Huffman decode walk, 20 704 rows, once per
-     table set present) equal their plain versions exactly, plus small
-     cases (one and three sets, forced ties, per-frame n_lines, a resumed
-     chain, 50 joint bands, the FMA row; sizes outside [2, 8], escapes,
-     walks past the payload, a stalling table); the plain K3 run counts
-     the chain's greedy-loop trips per frame;
+     lanes x 647 frames) and K4 (Huffman decode walk, 20 704 rows, every
+     row with its own tableId's set in one launch) equal their plain
+     versions exactly, plus small cases (one and three sets, forced ties,
+     per-frame n_lines, a resumed chain, 50 joint bands, the FMA row;
+     random bits with tids of every kind under each set alone and all
+     three, sizes outside [2, 8], escapes, walks past the payload, a
+     stalling table); the plain K3 run counts the chain's greedy-loop
+     trips per frame, the plain K1 run on the flagship rows per row;
   6. VBR path: PRESETS["vbr-huffman"] (fast) on the same clips — batched
      device encode and decode (CUDA events), then encode_array → bytes →
      decode_array per clip, counters zeroed before and read after (K2, K3
@@ -396,7 +398,7 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
     counters = {"water_fill": k1.water_fill_rows,
                 "scatter_words": k2.scatter_words_rows,
                 "vbr_scan": k3.vbr_reservoir_scan,
-                "huffdec": k4.huffman_decode_rows}
+                "huffdec": k4.huffman_decode_sets}
     ch = codec.ENC_CHUNK
 
     def zero_counters():
@@ -568,17 +570,17 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
         sets_present = [sid for sid in range(1, len(cc.cl.huff) + 1)
                         if tid_share[sid] > 0]
         check(bool(sets_present), "no Huffman-coded frame in the bs x vbr run")
-        k4_err, k4_ms = 0, 0.0
-        for sid in sets_present:
-            hc = cc.cl.huff[sid - 1]
-            err = worst_err(k4.huffman_decode_rows(wf, mant_start, m_line, hc),
-                            k4.huffman_decode_rows_plain(wf, mant_start, m_line, hc))
-            print(f"  K4 bs x vbr run, set {sid}: words {tuple(wf.shape)} "
-                  f"max_abs_err {err}")
-            check(err == 0, "K4 differs from its plain version at combo shapes")
-            k4_err = max(k4_err, err)
-            k4_ms += cuda_ms(lambda: k4.huffman_decode_rows(
-                wf, mant_start, m_line, hc), 10)
+        raw = codec.read_raw_mantissas(wf, mant_start[:, None].long(), m_line)
+        k4_err = worst_err(
+            k4.huffman_decode_sets(wf, mant_start, m_line, tid, raw.clone(),
+                                   cc.cl.huff),
+            k4.huffman_decode_sets_plain(wf, mant_start, m_line, tid,
+                                         raw.clone(), cc.cl.huff))
+        print(f"  K4 bs x vbr run: words {tuple(wf.shape)} sets "
+              f"{sets_present} max_abs_err {k4_err}")
+        check(k4_err == 0, "K4 differs from its plain version at combo shapes")
+        k4_ms = cuda_ms(lambda: k4.huffman_decode_sets(
+            wf, mant_start, m_line, tid, raw, cc.cl.huff), 20)
     print(json.dumps({"profile_bs_vbr": {
         "what": "one batched bs x vbr device encode", **prof_c}}))
     print(json.dumps({"bs_vbr_path": {
@@ -694,7 +696,11 @@ def main() -> int:
     check(fma_fused != fma_want,
           "the FMA row does not separate fused from unfused arithmetic")
     with torch.no_grad():
+        # the plain run of the comparison counts the chain's greedy-loop
+        # trips after the warm start (grants + freezes) over all rows
+        k1.water_fill_rows_plain.trips = 0
         k1_err, flag_alloc = k1_case("flagship smr", smr_q, nl, budgets)
+        k1_trips = k1.water_fill_rows_plain.trips / rows
         for case in (("random", bitalloc.snap_smr(rand_smr), nl, rand_bud),
                      ("ties/extremes", ties, nl,
                       torch.full((4,), c.budget, dtype=torch.int32, device=dev)),
@@ -728,6 +734,10 @@ def main() -> int:
         n_chunks = -(-rows // codec.ENC_CHUNK)
         k1_ms = cuda_ms(per_chunk(lambda s, b: k1.water_fill_rows(s, nl, b),
                                   smr_q, budgets), 50)
+        # the same 11 launches under the profiler: the card's own kernel
+        # time beside the host's wall, which the chunked events measure
+        k1_prof = profile_device(per_chunk(
+            lambda s, b: k1.water_fill_rows(s, nl, b), smr_q, budgets))
         k1_one_ms = cuda_ms(lambda: k1.water_fill_rows(smr_q, nl, budgets), 50)
         k1_plain_ms = cuda_ms(per_chunk(
             lambda s, b: k1.water_fill_rows_plain(s, nl, b), smr_q, budgets),
@@ -946,43 +956,55 @@ def main() -> int:
         check(sum(tid_share[1:]) > 0, "no Huffman-coded frame in the VBR run")
         sets_present = [sid for sid in range(1, len(cv.huff) + 1)
                         if tid_share[sid] > 0]
+        raw_v = codec.read_raw_mantissas(wf, mant_start_v[:, None].long(),
+                                         m_line_v)
 
-        def k4_case(name, w_, ms_, ml_, hc):
-            got = k4.huffman_decode_rows(w_, ms_, ml_, hc)
-            want, plain_ms = timed(lambda: k4.huffman_decode_rows_plain(
-                w_, ms_, ml_, hc))
+        def k4_case(name, w_, ms_, ml_, tid_, raw_, huff):
+            """K4's multi-set entry against its plain version, each on its
+            own copy of the raw reading (the kernel fills the Huffman rows
+            of its copy in place)."""
+            got = k4.huffman_decode_sets(w_, ms_, ml_, tid_, raw_.clone(), huff)
+            want, plain_ms = timed(lambda: k4.huffman_decode_sets_plain(
+                w_, ms_, ml_, tid_, raw_.clone(), huff))
             err = worst_err(got, want)
             print(f"  K4 {name}: words {tuple(w_.shape)} lines {ml_.shape[1]} "
-                  f"max_abs_err {err}")
+                  f"sets {len(huff)} max_abs_err {err}")
             check(err == 0, f"K4 {name} differs from its plain version")
             return err, got, plain_ms
 
-        k4_err, k4_ms, k4_plain_ms, k4_clip_ms = 0, 0.0, 0.0, 0.0
+        # ms: one decode's launch over all 20 704 rows, every set at once;
+        # ms_per_clip_launch: one clip's 1 294 rows
+        k4_err, _, k4_plain_ms = k4_case("vbr run", wf, mant_start_v, m_line_v,
+                                         tid_v, raw_v, cv.huff)
+        out_v = raw_v.clone()           # the timed launches write into it
+        k4_ms = cuda_ms(lambda: k4.huffman_decode_sets(
+            wf, mant_start_v, m_line_v, tid_v, out_v, cv.huff), 20)
         rows_clip = 2 * n_fr
-        for sid in sets_present:
-            hc = cv.huff[sid - 1]
-            err, _, pms = k4_case(f"vbr run, set {sid}", wf, mant_start_v,
-                                  m_line_v, hc)
-            k4_err, k4_plain_ms = max(k4_err, err), k4_plain_ms + pms
-            k4_ms += cuda_ms(lambda: k4.huffman_decode_rows(
-                wf, mant_start_v, m_line_v, hc), 10)
-            wc, sc, mc = (t[:rows_clip].contiguous()
-                          for t in (wf, mant_start_v, m_line_v))
-            k4_clip_ms += cuda_ms(lambda: k4.huffman_decode_rows(wc, sc, mc, hc), 10)
+        wc, sc, mc, tc_, rc = (t[:rows_clip].contiguous() for t in
+                               (wf, mant_start_v, m_line_v, tid_v, raw_v))
+        k4_clip_ms = cuda_ms(lambda: k4.huffman_decode_sets(
+            wc, sc, mc, tc_, rc, cv.huff), 20)
+        n_walk = int(((tid_v >= 1) & (tid_v <= len(cv.huff))).sum().item())
 
         def random_rows(k_, h_, w_):
             words = rng.integers(0, 1 << 32, (k_, w_), dtype=np.uint64) \
                 .astype(np.uint32).view(np.int32)
             return (dev_i32(words), dev_i32(rng.integers(0, 200, k_)),
                     dev_i32(rng.choice([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 16],
-                                       (k_, h_))))
+                                       (k_, h_))),
+                    dev_i32(rng.choice([0, 1, 2, 3, 7], k_)),
+                    dev_i32(rng.integers(0, 1 << 16, (k_, h_))))
 
-        for sid in range(1, len(cv.huff) + 1):       # sizes outside [2, 8], escapes
-            k4_err = max(k4_err, k4_case(f"random bits, set {sid}",
+        # sizes outside [2, 8], escapes, tids of no loaded set; each set
+        # alone (as tableId 1), then all three
+        for sid in range(1, len(cv.huff) + 1):
+            k4_err = max(k4_err, k4_case(f"random bits, set {sid} alone",
                                          *random_rows(1000, 200, w32_v),
-                                         cv.huff[sid - 1])[0])
+                                         (cv.huff[sid - 1],))[0])
+        k4_err = max(k4_err, k4_case("random bits, all sets",
+                                     *random_rows(1000, 200, w32_v), cv.huff)[0])
         k4_err = max(k4_err, k4_case("walks past the payload",
-                                     *random_rows(100, 128, 6), cv.huff[0])[0])
+                                     *random_rows(100, 128, 6), cv.huff)[0])
         # a table whose m = 2 codes leave a peek uncovered: length 0, a stall
         tab = dict(hf.host_tables(1))
         pak = np.array(tab["dec_pak"])
@@ -991,25 +1013,27 @@ def main() -> int:
         tab["dec_pak"] = pak
         hc_stall = hf.device_tables(tab, dev)
         peek = int(np.flatnonzero(pak[0] == 0)[0])
-        w_, ms_, ml_ = random_rows(64, 128, 64)
+        w_, ms_, ml_, tid_, raw_ = random_rows(64, 128, 64)
         w_[0] = int(np.uint32(peek << (32 - lmax)).view(np.int32))
         ml_[0] = 2
         ms_[0] = 0
-        err, got, _ = k4_case("stalling table", w_, ms_, ml_, hc_stall)
+        tid_[:] = 1
+        err, got, _ = k4_case("stalling table", w_, ms_, ml_, tid_, raw_,
+                              (hc_stall,))
         check(bool((got[0] == 0).all()), "K4 stall row moved")
         k4_err = max(k4_err, err)
-    k4_bytes = len(sets_present) * 4 * (wf.numel() + 2 * m_line_v.numel()
-                                        + mant_start_v.numel()
-                                        + cv.huff[0].canon.numel()
-                                        + cv.huff[0].perm.numel())
-    # per line: the window (two shifts, an or), the size test, the cursor add
-    # and at least one range probe (two compares) where the line is coded
-    k4_ops = len(sets_present) * m_line_v.numel() * 8
-    del wf, m_line_v, mant_start_v
+    # each byte once: the walked rows' words, m_line and output, every row's
+    # tid and mant_start, the sets' compact LUTs
+    k4_bytes = (4 * (n_walk * (w32_v + 2 * m_line_v.shape[1]) + 2 * rows)
+                + sum(2 * hc.lut.numel() + 4 * 7 for hc in cv.huff))
+    # per walked line: the window shift, the index, the size tests, the
+    # escape test, the value select and the cursor and buffer shifts
+    k4_ops = n_walk * m_line_v.shape[1] * 8
+    del wf, m_line_v, mant_start_v, raw_v, out_v, wc, sc, mc, tc_, rc
 
     # ---- 6. VBR path: counters zeroed just before, read just after
     counters = {"water_fill": k1.water_fill_rows, "scatter_words": k2.scatter_words_rows,
-                "vbr_scan": k3.vbr_reservoir_scan, "huffdec": k4.huffman_decode_rows}
+                "vbr_scan": k3.vbr_reservoir_scan, "huffdec": k4.huffman_decode_sets}
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
@@ -1074,8 +1098,13 @@ def main() -> int:
         {"name": "water_fill", "route": "cuda",
          "source": "tac_torch/csrc/water_fill.cu",
          "replaces": "tac/ops/pallas_alloc.py:308",
-         "launches": launches["water_fill"], "ok": True, "max_abs_err": k1_err,
+         "launches": launches["water_fill"], "ok": True,
+         "design": f"warp per row, {k1.WARM_ROUNDS} x {k1.WARM_BISECT} warm "
+                   "start counting events by estimate and fix-up",
+         "max_abs_err": k1_err, "trips_per_row": k1_trips,
          "ms": k1_ms, "ms_one_launch": k1_one_ms, "chunks": n_chunks,
+         "device_ms_chunks": k1_prof["device_busy_ms"],
+         "wall_ms_chunks_profiled": k1_prof["wall_ms"],
          "plain_ms": k1_plain_ms, "bound_ms": b1, "bound_by": b1_by,
          "library_ms": None},
         {"name": "scatter_words", "route": "cuda",
@@ -1094,18 +1123,23 @@ def main() -> int:
          "replaces": "tac/ops/pallas_vbr_scan.py:191",
          "launches": launches_v["vbr_scan"], "ok": True,
          "design": "rows by cp.async ring, DEC in a register, one-reduce grant, "
-                   "1 x 12 warm start",
+                   f"{k3.WARM_ROUNDS} x {k3.WARM_BISECT} warm start counting "
+                   "events by estimate and fix-up",
          "max_abs_err": k3_err, "ms": k3_ms, "ms_per_clip_launch": k3_clip_ms,
          "us_per_frame": k3_ms * 1e3 / n_fr, "trips_per_frame": k3_trips,
          "us_per_trip": k3_ms * 1e3 / (n_fr * k3_trips),
          "plain_ms": k3_plain_ms, "bound_ms": b3, "bound_by": b3_by,
          "library_ms": None},
-        # ms: the batched VBR decode's launches, one per table set present,
-        # each over all 20 704 rows; plain_ms likewise, one run per set
+        # ms: the batched VBR decode's one launch over all 20 704 rows, every
+        # set at once; plain_ms: the plain version over the same rows
         {"name": "huffdec", "route": "cuda",
          "source": "tac_torch/csrc/huffdec.cu",
          "replaces": "tac/ops/pallas_huffdec.py:175",
-         "launches": launches_v["huffdec"], "ok": True, "max_abs_err": k4_err,
+         "launches": launches_v["huffdec"], "ok": True,
+         "design": "thread per row, one launch per decode, every set's compact "
+                   "peek LUT in shared memory, bits in a register buffer fed "
+                   "four words ahead, branch-free line",
+         "max_abs_err": k4_err,
          "ms": k4_ms, "ms_per_clip_launch": k4_clip_ms, "sets_walked": sets_present,
          "plain_ms": k4_plain_ms, "bound_ms": b4, "bound_by": b4_by,
          "library_ms": None},

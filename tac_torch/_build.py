@@ -24,18 +24,34 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# The warm start of K1 and of K3 (rounds x water-level bisection steps),
+# set here only: each kernel is built with it (-DTAC_WARM_ROUNDS /
+# -DTAC_WARM_BISECT) and its plain version takes it as the default. The
+# allocation is the same at any setting; K1's is the fastest measured on
+# the card, K3's is tac's (PERF.md §6).
+WARM_START = {"water_fill": (1, 8), "vbr_scan": (1, 12)}
+
+
+def _warm_flags(name: str) -> list:
+    rounds, bisect = WARM_START[name]
+    return [f"-DTAC_WARM_ROUNDS={rounds}", f"-DTAC_WARM_BISECT={bisect}"]
+
+
 # kernel name -> (source, extra flags, headers it includes). The water-fill
 # chain (water_fill.cuh) compares smr - DEC[m] bit for bit with the
 # reference: no multiply-add contraction in either kernel that runs it.
 KERNELS = {
-    "water_fill": ("water_fill.cu", ["-fmad=false"], ["water_fill.cuh"]),
+    "water_fill": ("water_fill.cu", ["-fmad=false", *_warm_flags("water_fill")],
+                   ["water_fill.cuh"]),
     "scatter_words": ("scatter_words.cu", [], []),
-    "vbr_scan": ("vbr_scan.cu", ["-fmad=false"], ["water_fill.cuh"]),
+    "vbr_scan": ("vbr_scan.cu", ["-fmad=false", *_warm_flags("vbr_scan")],
+                 ["water_fill.cuh"]),
     "huffdec": ("huffdec.cu", [], []),
     "mdct_fused": ("mdct_fused.cu", [], []),
 }
 
 _loaded: dict = {}
+_entries: dict = {}
 
 
 def nvcc() -> str:
@@ -121,3 +137,16 @@ def load(name: str) -> ctypes.CDLL:
         finish_build(*build)
         lib = _loaded[name] = ctypes.CDLL(build[2])
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """The C function `symbol` of kernel `name`'s library, its ctypes
+    signature set (`argtypes`, an int return) once per process: a launch
+    then pays a dict lookup, not a library load and a signature."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name, symbol] = fn
+    return fn

@@ -35,6 +35,7 @@ from tac_torch.dsp import mdct as fb
 from tac_torch.dsp.window import sine_window, transition_windows, window_fn
 from tac_torch.ops.alloc import water_fill_rows
 from tac_torch.ops.bitpack import pack_rows
+from tac_torch.ops.huffdec import huffman_decode_sets
 
 LONG, START, SHORT, STOP = 0, 1, 2, 3
 EPS = 1e-12
@@ -494,7 +495,7 @@ def _bs_vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: BsConsts):
     pre, alloc_code, sf, mant_start = codec.read_head(
         wf, cfg, (2, cfg.n_scale_bits, 2))
     state = pre[:, 0]
-    return (state, pre[:, 1], pre[:, 2], alloc_code, sf,
+    return (state, pre[:, 1], pre[:, 2].contiguous(), alloc_code, sf,
             state_m_line(state, alloc_code, c),
             mant_start[:, 0].to(torch.int32))
 
@@ -506,8 +507,8 @@ def _unpack_bs_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
     map per row by state."""
     state, ovs, tid, alloc_code, sf, m_line, mant_start = _bs_vbr_head(wf, cfg, c)
     mant_raw = codec.read_raw_mantissas(wf, mant_start[:, None], m_line)
-    mant = codec._huffman_or_raw(wf, mant_start, m_line, tid, mant_raw,
-                                 c.cl.huff)
+    mant = huffman_decode_sets(wf, mant_start, m_line, tid, mant_raw,
+                               c.cl.huff)
     return _bs_code(state, ovs, alloc_code, sf, mant)
 
 

@@ -40,7 +40,7 @@ from tac_torch.dsp import mdct as fb
 from tac_torch.ops.alloc import water_fill_rows
 from tac_torch.ops.bitpack import pack_rows
 from tac_torch.ops.bitunpack import read_fields
-from tac_torch.ops.huffdec import huffman_decode_rows
+from tac_torch.ops.huffdec import huffman_decode_sets
 from tac_torch.ops.vbr_scan import (vbr_reservoir_scan,
                                     vbr_reservoir_scan_plain)
 
@@ -446,19 +446,6 @@ def encode_clip_vbr_packed(x, cfg: CodecConfig, device=None):
     return words.reshape(*lead, f, words.shape[-1]), nbits.reshape(*lead, f)
 
 
-def _huffman_or_raw(wf, mant_start, m_line, tid, mant_raw, huff: tuple):
-    """Select Huffman-decoded or raw mantissas per row. Each table set's
-    walk (K4) runs only if some row carries that tid (a host-side check), so
-    an all-raw stream pays no walk and a single-set stream pays one."""
-    out = mant_raw
-    for sid, hc in enumerate(huff, start=1):
-        here = tid == sid
-        if bool(here.any()):
-            dec = huffman_decode_rows(wf, mant_start, m_line, hc)
-            out = torch.where(here[:, None], dec, out)
-    return out
-
-
 def _vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
     """The head of int32 [K, W32] VBR payload rows (SPEC.md §7 huffman
     layout) → (ovs [K], tid [K], alloc_code [K, B], scale [K, B], m_line
@@ -467,7 +454,7 @@ def _vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
     pre, alloc_code, sf, mant_start = read_head(wf, cfg, (cfg.n_scale_bits, 2))
     m_line = torch.index_select(ba.code_to_alloc(alloc_code), 1,
                                 c.band_of_line).contiguous()
-    return (pre[:, 0], pre[:, 1], alloc_code, sf, m_line,
+    return (pre[:, 0], pre[:, 1].contiguous(), alloc_code, sf, m_line,
             mant_start[:, 0].to(torch.int32))
 
 
@@ -478,7 +465,7 @@ def _unpack_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
     serial decode walk."""
     ovs, tid, alloc_code, sf, m_line, mant_start = _vbr_head(wf, cfg, c)
     mant_raw = read_raw_mantissas(wf, mant_start[:, None], m_line)
-    mant = _huffman_or_raw(wf, mant_start, m_line, tid, mant_raw, c.huff)
+    mant = huffman_decode_sets(wf, mant_start, m_line, tid, mant_raw, c.huff)
     return FrameCode(ovs=ovs, alloc_code=alloc_code, scale=sf, mant=mant)
 
 

@@ -39,6 +39,10 @@
 
 #include "water_fill.cuh"
 
+#if !defined(TAC_WARM_ROUNDS) || !defined(TAC_WARM_BISECT)
+#error "set the warm start with -DTAC_WARM_ROUNDS/-DTAC_WARM_BISECT (_build.py)"
+#endif
+
 namespace {
 
 using namespace tac_wf;
@@ -46,8 +50,8 @@ using namespace tac_wf;
 constexpr int kMaxSets = 3;        // tableId is 2 bits: raw + three sets
 constexpr int kTab = 7;            // codable sizes m = 2..8
 constexpr int kDepth = 4;          // ring stages: frames in flight
-constexpr int kRounds = 1;         // warm start: tac's K3 setting,
-constexpr int kBisect = 12;        // 1 round x 12 bisection steps
+constexpr int kRounds = TAC_WARM_ROUNDS;  // warm start: tac's K3 setting,
+constexpr int kBisect = TAC_WARM_BISECT;  // from _build.WARM_START
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -2,33 +2,41 @@
 //
 // Replaces tac/ops/pallas_alloc.py:water_fill_rows (warm=True): the Pallas
 // body _kernel = warm_start_tile (water-level bisection, 2 rounds x 20
-// steps) + water_fill_tile (grant / lone-bit freeze loop to a fixpoint).
+// steps there; here the setting tac_torch/_build.py:WARM_START gives) +
+// water_fill_tile (grant / lone-bit freeze loop to a fixpoint).
 // The decision chain is SPEC.md §6 and must equal tac's integer for integer;
 // it lives in water_fill.cuh (shared with kernel K3), and the plain PyTorch
 // mirror is tac_torch/ops/alloc.py:water_fill_rows_plain.
 //
-// What bounds it on an H100: neither bytes (a row reads B floats + B ints
-// and writes B ints: ~4 MB for the flagship's 20 704 rows x 25 bands, about
-// a microsecond at 3.35 TB/s) nor arithmetic, but latency: each row is a
-// data-dependent serial chain of ~40 bisection steps and ~10-30 loop
-// iterations, each ending in warp-wide reductions. The design keeps the
-// whole chain in registers (water_fill.cuh); each warp leaves its loop as
-// soon as its own row converges (the TPU kernel looped to the batch max),
-// and four rows per 128-thread block keep enough warps resident to hide
-// the shuffle latency. The band slots per lane are a template parameter
-// (one slot at the 25-band rows), and the warm start keeps tac's K1 setting.
+// What bounds it on an H100: not bytes (a row reads B floats + B ints and
+// writes B ints: ~4 MB for the flagship's 20 704 rows x 25 bands, about a
+// microsecond at 3.35 TB/s) but instructions: a warp per row gives ~157
+// warps an SM, each a data-dependent serial chain of warm-start bisection
+// steps and ~16 loop trips, each ending in warp-wide reductions, so the
+// schedulers' issue rate sets the time. The design keeps the whole chain
+// in registers (water_fill.cuh); each warp leaves its loop as soon as its
+// own row converges (the TPU kernel looped to the batch max). A bisection
+// step counts each band's events above the level by an estimate and a
+// one-step check instead of 16 compares, and the warm start is the
+// fastest setting measured on the card among 2 x 20 (tac's), 1 x 12, 1 x 8
+// and a cold start (PERF.md §6); the allocation is the same at any. The
+// band slots per lane are a template parameter (one slot at 25 bands).
 //
 // Compiled with -fmad=false (see water_fill.cuh on exactness).
 
 #include "water_fill.cuh"
+
+#if !defined(TAC_WARM_ROUNDS) || !defined(TAC_WARM_BISECT)
+#error "set the warm start with -DTAC_WARM_ROUNDS/-DTAC_WARM_BISECT (_build.py)"
+#endif
 
 namespace {
 
 using namespace tac_wf;
 
 constexpr int kRowsPerBlock = 4;   // warps per block
-constexpr int kRounds = 2;         // warm start: tac's K1 setting,
-constexpr int kBisect = 20;        // 2 rounds x 20 bisection steps
+constexpr int kRounds = TAC_WARM_ROUNDS;  // warm start: rounds x bisection
+constexpr int kBisect = TAC_WARM_BISECT;  // steps, from _build.WARM_START
 
 template <int Slots>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)

@@ -32,6 +32,7 @@ namespace tac_wf {
 
 constexpr int kMantMax = 16;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kInvStep = 1.0f / 6.02f;  // the warm start's count estimate
 
 // One copy per shared library that includes this header.
 static __constant__ float c_dec[kMantMax + 1];
@@ -44,7 +45,7 @@ static inline int set_dec_table(const float* dec_host, int device) {
   return (int)cudaMemcpyToSymbol(c_dec, dec_host, sizeof(float) * (kMantMax + 1));
 }
 
-// Lane m's register copy of DEC[m] (lanes past 16 hold DEC[16], never read).
+// Lane m's register copy of DEC[m] (lanes 16 and up hold DEC[16]).
 __device__ __forceinline__ float load_dec(int lane) {
   return c_dec[lane < kMantMax ? lane : kMantMax];
 }
@@ -98,6 +99,38 @@ __device__ __forceinline__ void load_row(const float* __restrict__ smr_row,
   }
 }
 
+// The warm start's event count of each slot: cnt = #{m in [0, max_mant) :
+// fl(s - DEC[m]) > t} for a live band, 0 otherwise. fl(s - DEC[m]) does not
+// rise as m rises (DEC rises, and rounding is monotone), so the events above
+// t are a prefix of m and the count is the first m whose event is <= t. cnt
+// comes in as an estimate, (s - t) / 6.02 rounded up and clamped, and is
+// moved one step at a time until that characterization holds, tested with
+// the exact IEEE compares fl(s - DEC[m]) > t, so it equals a count over all
+// m (NaN, +-inf, the 1e30 sentinel and events that tie at large magnitudes
+// included). The estimate is exact but near a rounding edge, so the loop
+// usually checks once and stops; it is warp-uniform, as dec_at needs all
+// lanes.
+template <int Slots>
+__device__ __forceinline__ void count_events_above(const float (&s)[Slots],
+                                                   const bool (&live)[Slots],
+                                                   float t, int max_mant,
+                                                   float dec,
+                                                   int (&cnt)[Slots]) {
+  for (;;) {
+    bool moved = false;
+#pragma unroll
+    for (int k = 0; k < Slots; ++k) {
+      const float below = s[k] - dec_at(dec, max(cnt[k] - 1, 0));
+      const float at = s[k] - dec_at(dec, cnt[k]);
+      const bool up = live[k] && cnt[k] < max_mant && at > t;
+      const bool down = live[k] && cnt[k] > 0 && !(below > t);
+      cnt[k] += (int)up - (int)down;
+      moved |= up || down;
+    }
+    if (!__any_sync(kFull, moved)) return;
+  }
+}
+
 // The whole chain for one row: warm start (warm_start_tile: grant the
 // prefix of the descending event order above a bisected water level,
 // Rounds times with Bisect steps each; 0 rounds is a cold start) then the
@@ -122,14 +155,6 @@ __device__ __forceinline__ void water_fill_row(const float (&s)[Slots],
     frozen[k] = false;
   }
 
-  // the event keys fl(s - DEC[m]): the very values the loop's need takes,
-  // held in registers so that a bisection step is 16 independent compares
-  float ev[Slots][kMantMax];
-#pragma unroll
-  for (int k = 0; k < Slots; ++k)
-#pragma unroll
-    for (int m = 0; m < kMantMax; ++m) ev[k][m] = s[k] - c_dec[m];
-
 #pragma unroll 1
   for (int round = 0; round < Rounds; ++round) {
     bool live[Slots];                          // valid & affordable
@@ -148,15 +173,18 @@ __device__ __forceinline__ void water_fill_row(const float (&s)[Slots],
 #pragma unroll 1
     for (int it = 0; it <= Bisect; ++it) {
       const float t = it < Bisect ? 0.5f * (lo + hi) : hi;
+      int cnt[Slots];
+#pragma unroll
+      for (int k = 0; k < Slots; ++k)
+        cnt[k] = live[k] ? min(max(__float2int_ru((s[k] - t) * kInvStep), 0),
+                               max_mant)
+                         : 0;
+      count_events_above(s, live, t, max_mant, dec, cnt);
       int cost = 0;
       int g[Slots];
 #pragma unroll
       for (int k = 0; k < Slots; ++k) {
-        int cnt = 0;
-#pragma unroll
-        for (int m = 0; m < kMantMax; ++m)
-          cnt += (live[k] && m < max_mant && ev[k][m] > t) ? 1 : 0;
-        g[k] = max(cnt - a[k], 0);
+        g[k] = max(cnt[k] - a[k], 0);
         cost += g[k] * n[k];
       }
       cost = warp_sum(cost);

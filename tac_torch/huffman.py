@@ -9,9 +9,10 @@ which is followed by the raw m bits.
 On the card every table lookup is a plain gather into a small device
 tensor: ``HuffConsts`` holds one set's cost rows [7, 256], encode rows
 [9, 256], the packed decode LUT [7, 2^lmax] that the plain decode walk
-reads, and the canonical (first, last, base) / rank→symbol arrays that
-kernel K4 (tac_torch/ops/huffdec.py) decodes with. ``host_tables`` builds
-them in NumPy; ``device_tables`` uploads any such set of arrays.
+reads, and the compact peek LUT (each table at its own longest codeword)
+that kernel K4 (tac_torch/ops/huffdec.py) holds in shared memory.
+``host_tables`` builds them in NumPy; ``device_tables`` uploads any such
+set of arrays.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ class HuffConsts(NamedTuple):
     enc_esc: torch.Tensor    # [9, 256] bool symbol has no codeword of its own
     dec_pak: torch.Tensor    # [7, 2^lmax] int32 peek LUT: length << 16 | symbol
     lmax: int                # peek width of dec_pak
-    canon: torch.Tensor      # [7, 17, 3] int32 (first, last, base) per length
-    perm: torch.Tensor       # [7, 257] int32 canonical rank → symbol
+    lut: torch.Tensor        # [E] int16 compact peek LUT: length << 9 | symbol
+    lut_tab: torch.Tensor    # [7] int32 per table: offset in lut << 5 | width
 
 
 def n_sets() -> int:
@@ -129,41 +130,36 @@ def packed_dec_lut(set_id: int = 1) -> np.ndarray:
     return pak
 
 
-def canon_from_lut(dec_pak: np.ndarray):
-    """The canonical decode constants of a packed peek LUT [7, 2^lmax]:
-    (canon int32[7, 17, 3], perm int32[7, 257]). For table t and codeword
-    length l, the codes of that length are the contiguous ascending range
-    canon[t, l] = (first, last, base): a peek whose top l bits v lie in
-    [first, last] has length l and canonical rank v - first + base, and
-    perm[t, rank] is its symbol. Lengths without codes hold (1, 0, 0).
-    Raises ValueError when a length's codes are not one contiguous range."""
+def compact_dec_lut(dec_pak: np.ndarray):
+    """The compact peek LUT of a packed one [7, 2^lmax]: (lut int16[E],
+    tab int32[7]). Table t is taken at its own width w_t, its longest
+    codeword (0 for a table without codes), so the peek p of lmax bits has
+    the entry lut[off_t + (p >> (lmax - w_t))], which holds
+    length << 9 | symbol (0 = uncovered peek); tab[t] = off_t << 5 | w_t.
+    E is padded to a multiple of 8 (16-byte rows for the kernel's copy).
+    Raises ValueError when dec_pak[t] is not constant over each block of
+    2^(lmax - w_t) peeks, or a length or symbol does not fit its field."""
     dec_pak = np.asarray(dec_pak)
     lmax = int(dec_pak.shape[1]).bit_length() - 1
     if dec_pak.shape != (N_TAB, 1 << lmax) or lmax > MAX_LEN:
         raise ValueError(f"peek LUT of shape {dec_pak.shape} is not "
                          f"[{N_TAB}, 2^lmax] with lmax <= {MAX_LEN}")
-    canon = np.zeros((N_TAB, MAX_LEN + 1, 3), np.int32)
-    canon[:, :, 0] = 1
-    perm = np.zeros((N_TAB, 2 ** MAX_M + 1), np.int32)
+    lens, syms = dec_pak >> 16, dec_pak & 0xFFFF
+    if lens.max() > MAX_LEN or syms.max() > 2 ** MAX_M or (dec_pak < 0).any():
+        raise ValueError("peek LUT entry out of range")
+    parts, tab, off = [], np.zeros(N_TAB, np.int32), 0
     for t in range(N_TAB):
-        lens, syms = dec_pak[t] >> 16, dec_pak[t] & 0xFFFF
-        base = 0
-        for ln in range(1, lmax + 1):
-            idx = np.flatnonzero(lens == ln)
-            if not len(idx):
-                continue
-            codes = np.unique(idx >> (lmax - ln))
-            first, last = int(codes[0]), int(codes[-1])
-            span = 1 << (lmax - ln)
-            if (len(codes) != last - first + 1
-                    or len(idx) != len(codes) * span
-                    or base + len(codes) > perm.shape[1]):
-                raise ValueError(f"huffman table m={t + MIN_M} is not "
-                                 f"canonical-contiguous at length {ln}")
-            canon[t, ln] = (first, last, base)
-            perm[t, base:base + len(codes)] = syms[codes << (lmax - ln)]
-            base += len(codes)
-    return canon, perm
+        w = int(lens[t].max())
+        blocks = (lens[t] << 9 | syms[t]).reshape(1 << w, -1)
+        if (blocks != blocks[:, :1]).any():
+            raise ValueError(f"huffman table m={t + MIN_M}: peek LUT not "
+                             f"constant over its {blocks.shape[1]}-peek blocks")
+        parts.append(blocks[:, 0])
+        tab[t] = off << 5 | w
+        off += 1 << w
+    lut = np.zeros(-(-off // 8) * 8, np.int16)
+    lut[:off] = np.concatenate(parts)
+    return lut, tab
 
 
 def host_tables(set_id: int) -> dict:
@@ -178,7 +174,7 @@ def device_tables(arrays: dict, device) -> HuffConsts:
     def up(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-    canon, perm = canon_from_lut(arrays["dec_pak"])
+    lut, tab = compact_dec_lut(arrays["dec_pak"])
     return HuffConsts(
         cost=up(arrays["cost"], torch.int32),
         enc_code=up(arrays["enc_code"], torch.int32),
@@ -186,7 +182,7 @@ def device_tables(arrays: dict, device) -> HuffConsts:
         enc_esc=up(arrays["enc_esc"], torch.bool),
         dec_pak=up(arrays["dec_pak"], torch.int32),
         lmax=int(np.asarray(arrays["dec_pak"]).shape[1]).bit_length() - 1,
-        canon=up(canon, torch.int32), perm=up(perm, torch.int32))
+        lut=up(lut, torch.int16), lut_tab=up(tab, torch.int32))
 
 
 def encode_fields_device(mant: torch.Tensor, m_line: torch.Tensor,

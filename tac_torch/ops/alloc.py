@@ -8,7 +8,7 @@ decision chain in plain PyTorch, batched over rows, and is what the
 wrapper runs for tensors on the CPU.
 
 Decision chain (SPEC.md §6, exact vs tac/bitalloc.py:water_fill):
-  * warm start: a water-level bisection (2 rounds × 20 steps) grants the
+  * warm start: a water-level bisection (1 round × 8 steps) grants the
     prefix of the descending event order in closed form — exact for any
     converged level (tac/bitalloc.py:_warm_start has the lemma);
   * loop to a fixpoint: grant to the eligible band of largest
@@ -32,6 +32,9 @@ DB_PER_BIT = 6.02      # SNR gain per granted bit
 # DEC[k] = 6.02·k, the shared decrement table (k = 0..MANT_MAX)
 DEC_TABLE = np.arange(MANT_MAX + 1, dtype=np.float64) * DB_PER_BIT
 MAX_BANDS = 128        # four bands per lane of a warp in the kernel
+# K1's warm start, rounds x water-level bisection steps, as the kernel is
+# built with it (_build.WARM_START)
+WARM_ROUNDS, WARM_BISECT = _build.WARM_START["water_fill"]
 
 _DEC32 = np.ascontiguousarray(DEC_TABLE, np.float32)
 
@@ -40,8 +43,8 @@ def _dec(dtype, device) -> torch.Tensor:
     return torch.as_tensor(DEC_TABLE, dtype=dtype, device=device)
 
 
-def _warm_start(smr, nl, valid, rem, dec, m_cap: int, rounds: int = 2,
-                n_bisect: int = 20):
+def _warm_start(smr, nl, valid, rem, dec, m_cap: int, rounds: int,
+                n_bisect: int):
     """Row-batched mirror of tac's warm_start_tile: smr [R, B], nl [R, B],
     rem [R, 1] → (alloc0 [R, B], rem [R, 1])."""
     neg = torch.tensor(float("-inf"), dtype=smr.dtype, device=smr.device)
@@ -77,14 +80,15 @@ def _warm_start(smr, nl, valid, rem, dec, m_cap: int, rounds: int = 2,
 
 def water_fill_rows_plain(smr_q: torch.Tensor, n_lines: torch.Tensor,
                           budgets: torch.Tensor, *, max_mant: int = MANT_MAX,
-                          rounds: int = 2, n_bisect: int = 20) -> torch.Tensor:
+                          rounds: int = WARM_ROUNDS,
+                          n_bisect: int = WARM_BISECT) -> torch.Tensor:
     """Plain PyTorch K1: the decision chain of warm_start_tile +
     water_fill_tile, batched over rows, in smr_q's float type (f32 for the
     fast path, f64 for parity).
 
     smr_q [R, B] grid-snapped SMRs; n_lines int [B] or [R, B]; budgets
     int [R]. Returns int32 [R, B] allocations. ``rounds`` × ``n_bisect`` is
-    the warm start (K1's 2 × 20 by default; K3 runs 1 × 12; 0 rounds is a
+    the warm start (K1's 1 × 8 by default; K3 runs 1 × 12; 0 rounds is a
     cold start): the allocations are the same at any setting, only the
     number of loop trips differs. Every call adds its rows' loop trips
     (grants + freezes after the warm start) to
@@ -150,14 +154,12 @@ water_fill_rows_plain.trips = 0
 _dec_filled: set = set()      # (entry name, device) whose DEC table is filled
 
 
-def fill_dec_table(lib, entry: str, device: int) -> None:
+def fill_dec_table(kernel: str, entry: str, device: int) -> None:
     """Fill the constant DEC table of one kernel library on `device`, once
     (every library that includes water_fill.cuh has its own copy)."""
     if (entry, device) in _dec_filled:
         return
-    set_dec = getattr(lib, entry)
-    set_dec.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    set_dec.restype = ctypes.c_int
+    set_dec = _build.entry(kernel, entry, [ctypes.c_void_p, ctypes.c_int])
     err = set_dec(_DEC32.ctypes.data, device)
     if err:
         raise RuntimeError(f"{entry}: DEC table upload failed: CUDA error {err}")
@@ -166,12 +168,10 @@ def fill_dec_table(lib, entry: str, device: int) -> None:
 
 def _lib(device: int):
     """The kernel's C entry; fills the DEC table on `device` at first use."""
-    lib = _build.load("water_fill")
-    fill_dec_table(lib, "tac_water_fill_set_dec", device)
-    fn = lib.tac_water_fill_rows
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    fill_dec_table("water_fill", "tac_water_fill_set_dec", device)
+    return _build.entry("water_fill", "tac_water_fill_rows",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p])
 
 
 def water_fill_rows(smr_q: torch.Tensor, n_lines: torch.Tensor,

@@ -13,10 +13,15 @@ Reads take two adjacent big-endian words whose indices both clip to
 version alike, so a walk that runs past its payload gives the same
 (discarded) values in both.
 
-The CUDA source is tac_torch/csrc/huffdec.cu (one thread per row, decoding
-by canonical-code arithmetic); ``huffman_decode_rows_plain`` is the walk in
-plain PyTorch through the packed peek LUT, the mirror of tac's
-_huffman_decode_scan, and is what the wrapper runs for tensors on the CPU.
+A decode holds rows of every tableId: ``huffman_decode_sets`` walks each
+row with its own set (tid s ∈ [1, len(huff)]) and leaves the others'
+raw mantissas, in one launch of the CUDA kernel tac_torch/csrc/huffdec.cu
+(one thread per row, every set's compact peek LUT in shared memory).
+``huffman_decode_rows_plain`` is the walk of one set in plain PyTorch
+through the packed peek LUT, the mirror of tac's _huffman_decode_scan;
+``huffman_decode_sets_plain`` runs it per set present and selects by tid,
+and is what the wrapper runs for tensors on the CPU. Both entries consume
+``mant_raw``: they write the Huffman rows into it and return it.
 """
 
 from __future__ import annotations
@@ -71,52 +76,101 @@ def huffman_decode_rows_plain(words: torch.Tensor, mant_start: torch.Tensor,
     return out
 
 
-def _lib():
-    fn = _build.load("huffdec").tac_huffman_decode_rows
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def huffman_decode_sets_plain(words: torch.Tensor, mant_start: torch.Tensor,
+                              m_line: torch.Tensor, tid: torch.Tensor,
+                              mant_raw: torch.Tensor, huff: tuple) -> torch.Tensor:
+    """Plain PyTorch K4 over a decode's rows: each set's walk over every
+    row, run for the sets some row carries (a host-side check), its rows
+    selected by tid and written into mant_raw in place, as the kernel
+    does. Returns mant_raw."""
+    for sid, hc in enumerate(huff, start=1):
+        here = tid == sid
+        if bool(here.any()):
+            dec = huffman_decode_rows_plain(words, mant_start, m_line, hc)
+            mant_raw[here] = dec[here]
+    return mant_raw
+
+
+MAX_SETS = 3           # tableId is two bits: raw + three trained sets
+_ready: set = set()    # devices where the kernel's shared-memory opt-in is set
+
+
+def _lib(device: int):
+    """The kernel's C entry; opts in to its shared memory on `device` once."""
+    fn = _build.entry("huffdec", "tac_huffman_decode_sets",
+                      [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_void_p)] * 2
+                      + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
+    if device not in _ready:
+        setup = _build.entry("huffdec", "tac_huffdec_setup", [ctypes.c_int])
+        err = setup(device)
+        if err:
+            raise RuntimeError("huffdec: shared-memory opt-in refused: CUDA "
+                               f"error {err}")
+        _ready.add(device)
     return fn
 
 
-def huffman_decode_rows(words: torch.Tensor, mant_start: torch.Tensor,
-                        m_line: torch.Tensor, hc: HuffConsts) -> torch.Tensor:
-    """K4: decode every row's mantissa run with one trained table set.
+def huffman_decode_sets(words: torch.Tensor, mant_start: torch.Tensor,
+                        m_line: torch.Tensor, tid: torch.Tensor,
+                        mant_raw: torch.Tensor, huff: tuple) -> torch.Tensor:
+    """K4: every Huffman-coded row's mantissas, each row with its own set.
 
     words int32 [K, W32] payload rows (32-bit patterns); mant_start int32
     [K] absolute bit offset of each row's mantissa run; m_line int32 [K, H]
-    mantissa size per line, in [0, 16]; hc: the set's tables on the same
-    device. Returns int32 [K, H].
+    mantissa size per line, in [0, 16]; tid int32 [K] tableIds; mant_raw
+    int32 [K, H] the rows' raw reading; huff: the trained sets (HuffConsts,
+    index = tid − 1) on the same device. Returns mant_raw, holding set s's
+    walk where tid = s ∈ [1, len(huff)] and the raw reading elsewhere.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``huffman_decode_rows.launches``) or raise."""
+    The Huffman rows are written into mant_raw in place, which is returned:
+    on the CPU by the plain version, on CUDA by one launch of the kernel
+    (counted in ``huffman_decode_sets.launches``), or the call raises."""
     if words.device.type == "cpu":
-        return huffman_decode_rows_plain(words, mant_start, m_line, hc)
+        return huffman_decode_sets_plain(words, mant_start, m_line, tid,
+                                         mant_raw, huff)
     if words.device.type != "cuda":
-        raise ValueError(f"huffman_decode_rows: unsupported device {words.device}")
-    for name, t in (("words", words), ("mant_start", mant_start),
-                    ("m_line", m_line), ("canon", hc.canon), ("perm", hc.perm)):
+        raise ValueError(f"huffman_decode_sets: unsupported device {words.device}")
+    if not 1 <= len(huff) <= MAX_SETS:
+        raise ValueError(f"huffman_decode_sets takes 1..{MAX_SETS} table sets")
+    named = [("words", words), ("mant_start", mant_start), ("m_line", m_line),
+             ("tid", tid), ("mant_raw", mant_raw)]
+    for i, hc in enumerate(huff):
+        named += [(f"huff[{i}].lut_tab", hc.lut_tab)]
+    for name, t in named:
         if (t.device != words.device or t.dtype != torch.int32
                 or not t.is_contiguous()):
-            raise ValueError(f"huffman_decode_rows: {name} must be a contiguous "
+            raise ValueError(f"huffman_decode_sets: {name} must be a contiguous "
                              f"int32 tensor on {words.device}")
+    for i, hc in enumerate(huff):
+        if (hc.lut.device != words.device or hc.lut.dtype != torch.int16
+                or not hc.lut.is_contiguous() or hc.lut.numel() % 8
+                or hc.lut.data_ptr() % 16 or hc.lut_tab.shape != (N_TAB,)):
+            raise ValueError(f"huffman_decode_sets: huff[{i}] has no compact "
+                             f"peek LUT on {words.device} (huffman.device_tables)")
     if (words.dim() != 2 or m_line.dim() != 2 or words.shape[1] < 1
             or m_line.shape[0] != words.shape[0]
-            or mant_start.shape != words.shape[:1]):
-        raise ValueError("huffman_decode_rows: words must be [K, W32], "
-                         "mant_start [K] and m_line [K, H]")
+            or mant_start.shape != words.shape[:1] or tid.shape != words.shape[:1]
+            or mant_raw.shape != m_line.shape):
+        raise ValueError("huffman_decode_sets: words must be [K, W32], "
+                         "mant_start and tid [K], m_line and mant_raw [K, H]")
     k, w32 = words.shape
     h = m_line.shape[1]
-    out = torch.empty((k, h), dtype=torch.int32, device=words.device)
     if k == 0 or h == 0:
-        return out
-    err = _lib()(words.data_ptr(), mant_start.data_ptr(), m_line.data_ptr(),
-                 hc.canon.data_ptr(), hc.perm.data_ptr(), out.data_ptr(), k, h,
-                 w32, hc.lmax, words.device.index or 0,
-                 torch.cuda.current_stream(words.device).cuda_stream)
+        return mant_raw
+    device = words.device.index or 0
+    n = len(huff)
+    luts = (ctypes.c_void_p * n)(*(hc.lut.data_ptr() for hc in huff))
+    tabs = (ctypes.c_void_p * n)(*(hc.lut_tab.data_ptr() for hc in huff))
+    sizes = (ctypes.c_int * n)(*(hc.lut.numel() for hc in huff))
+    err = _lib(device)(words.data_ptr(), mant_start.data_ptr(), m_line.data_ptr(),
+                       tid.data_ptr(), mant_raw.data_ptr(), luts, tabs, sizes, n,
+                       k, h, w32, device,
+                       torch.cuda.current_stream(words.device).cuda_stream)
     if err:
         raise RuntimeError(f"huffdec kernel launch failed: CUDA error {err}")
-    huffman_decode_rows.launches += 1
-    return out
+    huffman_decode_sets.launches += 1
+    return mant_raw
 
 
-huffman_decode_rows.launches = 0
+huffman_decode_sets.launches = 0

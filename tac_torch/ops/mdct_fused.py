@@ -52,11 +52,9 @@ def split_tf32(v: torch.Tensor):
 
 
 def _lib():
-    fn = _build.load("mdct_fused").tac_mdct_frames_fused
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("mdct_fused", "tac_mdct_frames_fused",
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def mdct_frames_fused(x: torch.Tensor, h: int,

@@ -51,10 +51,9 @@ def scatter_words_rows_plain(c0: torch.Tensor, c1: torch.Tensor,
 
 
 def _lib():
-    fn = _build.load("scatter_words").tac_scatter_words_rows
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("scatter_words", "tac_scatter_words_rows",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p])
 
 
 def scatter_words_rows(c0: torch.Tensor, c1: torch.Tensor,

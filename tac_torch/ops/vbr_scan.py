@@ -34,8 +34,9 @@ from tac_torch.ops.alloc import (MANT_MAX, MAX_BANDS, fill_dec_table,
 MAX_SETS = 3           # tableId is two bits: raw + three trained sets
 # K3's warm start, as tac's K3 runs it (tac/ops/pallas_vbr_scan.py): one
 # round of 12 bisection steps; the chain's integers are the same at any
-# setting, and the kernel and its plain version take the same steps
-WARM_ROUNDS, WARM_BISECT = 1, 12
+# setting, and the kernel (built with _build.WARM_START) and its plain
+# version take the same steps
+WARM_ROUNDS, WARM_BISECT = _build.WARM_START["vbr_scan"]
 
 
 def vbr_price(alloc: torch.Tensor, bits_huf: torch.Tensor,
@@ -95,12 +96,10 @@ def vbr_reservoir_scan_plain(smr_q: torch.Tensor, bits_huf: torch.Tensor,
 
 def _lib(device: int):
     """The kernel's C entry; fills the DEC table on `device` at first use."""
-    lib = _build.load("vbr_scan")
-    fill_dec_table(lib, "tac_vbr_scan_set_dec", device)
-    fn = lib.tac_vbr_reservoir_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    fill_dec_table("vbr_scan", "tac_vbr_scan_set_dec", device)
+    return _build.entry("vbr_scan", "tac_vbr_reservoir_scan",
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                        + [ctypes.c_void_p])
 
 
 def vbr_reservoir_scan(smr_q: torch.Tensor, bits_huf: torch.Tensor,

@@ -5,6 +5,8 @@ XLA vmap(water_fill) loop and the Pallas kernel in interpret mode.
 Allocations are integers: every comparison is exact."""
 
 import functools
+import inspect
+import os
 
 import numpy as np
 import jax
@@ -131,7 +133,7 @@ def test_plain_k1_joint_ms_bands(rng):
 
 
 def test_plain_k1_warm_start_matches_external(rng):
-    """The in-kernel warm start (2 × 20 bisection) lands where tac's
+    """The in-kernel warm start (K1's 1 × 8 bisection) lands where tac's
     externally warm-started Pallas kernel (XLA 2 × 32 bisection, interpret
     mode) finishes: the warm start is exact at any converged level."""
     smr_q = _snap(rng.normal(10, 25, (32, len(NL))))
@@ -206,12 +208,13 @@ def _warm_cases(rng):
     ]
 
 
-@pytest.mark.parametrize("rounds,n_bisect", [(1, 12), (0, 0)])
+@pytest.mark.parametrize("rounds,n_bisect", [(2, 20), (1, 12), (0, 0)])
 def test_plain_k1_warm_start_setting_is_decision_exact(rng, rounds, n_bisect):
     """tac's prefix lemma (tac/ops/pallas_vbr_scan.py, tac/bitalloc.py): the
-    allocation is the same after a warm start of 2 × 20 (K1's), 1 × 12 (K3's)
-    or none at all; only the loop's trip count changes, and it never falls
-    as the warm start gets shorter. Kernel K3 relies on this."""
+    allocation is the same after a warm start of 1 × 8 (K1's), 2 × 20
+    (tac's K1 setting), 1 × 12 (K3's) or none at all; only the loop's trip
+    count changes, and it never falls as the warm start gets shorter.
+    Kernels K1 and K3 rely on this."""
     for name, smr_q, nl, budgets, mm in _warm_cases(rng):
         args = (torch.tensor(smr_q), torch.as_tensor(nl, dtype=torch.int32),
                 torch.as_tensor(budgets, dtype=torch.int32))
@@ -222,6 +225,80 @@ def test_plain_k1_warm_start_setting_is_decision_exact(rng, rounds, n_bisect):
                                         n_bisect=n_bisect)
         t2 = tk1.water_fill_rows_plain.trips
         np.testing.assert_array_equal(got.numpy(), ref.numpy(), err_msg=name)
-        assert t2 - t1 >= t1 - t0, name
+        if (rounds, n_bisect) > (tk1.WARM_ROUNDS, tk1.WARM_BISECT):
+            assert t2 - t1 <= t1 - t0, name
+        else:
+            assert t2 - t1 >= t1 - t0, name
         if name == "fma_row":
             np.testing.assert_array_equal(got.numpy(), [[2, 11]])
+
+
+@pytest.mark.parametrize("kernel", ["water_fill", "vbr_scan"])
+def test_kernel_is_built_with_its_plain_warm_start(kernel):
+    """K1's and K3's warm start is set in one place (_build.WARM_START):
+    nvcc passes the plain version's setting to the kernel (the flags are
+    part of the build hash), and the source holds no setting of its own."""
+    from tac_torch import _build
+    from tac_torch.ops import vbr_scan as tk3
+
+    mod = tk1 if kernel == "water_fill" else tk3
+    cmd = _build._command(kernel, "out.so")
+    assert f"-DTAC_WARM_ROUNDS={mod.WARM_ROUNDS}" in cmd
+    assert f"-DTAC_WARM_BISECT={mod.WARM_BISECT}" in cmd
+    with open(os.path.join(_build.CSRC, _build.KERNELS[kernel][0])) as f:
+        src = f.read()
+    assert "kRounds = TAC_WARM_ROUNDS;" in src
+    assert "kBisect = TAC_WARM_BISECT;" in src
+    if kernel == "water_fill":
+        params = inspect.signature(tk1.water_fill_rows_plain).parameters
+        assert (params["rounds"].default, params["n_bisect"].default) == \
+            _build.WARM_START["water_fill"]
+
+
+def _count_by_estimate(s, t, live, max_mant):
+    """Torch mirror of the warm start's event count in
+    csrc/water_fill.cuh (count_events_above), in f32: the estimate
+    ceil((s - t) · fl(1 / 6.02)) with __float2int_ru's saturation (NaN → 0),
+    clamped to [0, max_mant], then one-step moves until the count is the
+    first m whose event fl(s − DEC[m]) is not above t."""
+    dec = torch.tensor(tk1.DEC_TABLE, dtype=torch.float32)
+    inv = torch.tensor(np.float32(1.0) / np.float32(6.02))
+    est = torch.ceil((s - t) * inv)
+    est = torch.nan_to_num(est, nan=0.0, posinf=2.0 ** 31, neginf=-2.0 ** 31)
+    cnt = torch.where(live, est.clamp(0, max_mant).to(torch.int64), 0)
+    while True:
+        below = s - dec[(cnt - 1).clamp(min=0)]
+        at = s - dec[cnt.clamp(max=tk1.MANT_MAX)]
+        up = live & (cnt < max_mant) & (at > t)
+        down = live & (cnt > 0) & ~(below > t)
+        if not bool((up | down).any()):
+            return cnt
+        cnt = cnt + up.long() - down.long()
+
+
+@pytest.mark.parametrize("max_mant", [16, 9])
+def test_k1_event_count_by_estimate_equals_all_compares(rng, max_mant):
+    """The warm start's count by estimate and fix-up equals the count of
+    all compares #{m < max_mant : fl(s − DEC[m]) > t}, on random (s, t),
+    on ±0, ±inf, NaN levels, the 1e30 sentinel, 3e38, and at magnitudes
+    where events tie (an ulp of 1e8 is 8 > 6.02), with t on an event."""
+    dec = torch.tensor(tk1.DEC_TABLE, dtype=torch.float32)
+    special = np.float32([0.0, -0.0, np.inf, -np.inf, 1e30, -1e30, 3e38, -3e38,
+                          1e8, -1e8, 1.5e8 + 16, 12345.678, 6.02, -6.02])
+    s = np.concatenate([rng.normal(10, 25, 4000), rng.normal(0, 300, 2000),
+                        rng.choice(special, 3000),
+                        rng.uniform(-2e8, 2e8, 1000)]).astype(np.float32)
+    t = np.concatenate([rng.normal(0, 30, 4000), rng.normal(0, 300, 2000),
+                        rng.choice(np.r_[special, np.float32(np.nan)], 3000),
+                        rng.uniform(-2e8, 2e8, 1000)]).astype(np.float32)
+    s, t = torch.from_numpy(s), torch.from_numpy(t)
+    on_event = torch.from_numpy(rng.random(len(s)) < 0.3)
+    ev = s[:, None] - dec[:tk1.MANT_MAX]
+    pick = ev[torch.arange(len(s)), torch.from_numpy(rng.integers(0, 16, len(s)))]
+    t = torch.where(on_event, pick, t)               # ties with an event
+    live = torch.from_numpy(rng.random(len(s)) < 0.9)
+    want = (live[:, None] & (torch.arange(tk1.MANT_MAX) < max_mant)
+            & (ev > t[:, None])).sum(-1)
+    got = _count_by_estimate(s, t, live, max_mant)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (want[s.abs() >= 1e8] > 0).any()

@@ -49,12 +49,21 @@ def _k1_both(dev, smr, nl, budgets, max_mant=16):
 
 
 @pytest.mark.parametrize("case", ["random", "budgets", "ties", "joint",
-                                  "per_row", "bs_widths", "max_mant"])
+                                  "per_row", "bs_widths", "max_mant",
+                                  "extremes"])
 def test_k1_kernel_equals_plain(dev, case):
     rng = np.random.default_rng(7)
     smr = tba.snap_smr(torch.tensor(rng.normal(10, 25, (3000, 25)))).numpy()
     nl, budgets, mm = NL, np.full(3000, 1282), 16
-    if case == "budgets":
+    if case == "extremes":
+        # ±0, ±inf, the 1e30 sentinel, 3e38, and rows near 1e8, where an ulp
+        # (8) exceeds a bit's 6.02 dB and the warm start's events tie
+        special = np.float32([0.0, -0.0, np.inf, -np.inf, 1e30, -1e30, 3e38,
+                              -3e38, 1e8, -1e8, 1.5e8 + 16, 12345.678])
+        smr = rng.choice(special, (3000, 25)).astype(np.float32)
+        smr[:500] = rng.normal(1e8, 100, (500, 25)).astype(np.float32)
+        budgets = rng.choice([0, 5, 600, 1282, 5000], 3000)
+    elif case == "budgets":
         budgets = rng.choice([0, 5, 12, 600, 5000], 3000)
     elif case == "ties":
         smr = np.stack([np.zeros(25), np.full(25, 90.0), np.full(25, -90.0),
@@ -192,33 +201,59 @@ def test_k3_slot_templates_and_lanes(dev, case):
         np.testing.assert_array_equal(k1_got, k1_want)
 
 
-def _k4_both(dev, words, mant_start, m_line, hc):
-    args = (torch.as_tensor(words, dtype=torch.int32, device=dev).contiguous(),
-            torch.as_tensor(mant_start, dtype=torch.int32, device=dev),
-            torch.as_tensor(m_line, dtype=torch.int32, device=dev).contiguous())
-    before = tk4.huffman_decode_rows.launches
-    got = tk4.huffman_decode_rows(*args, hc)
-    assert tk4.huffman_decode_rows.launches == before + 1
-    want = tk4.huffman_decode_rows_plain(*args, hc)
+def _k4_both(dev, words, mant_start, m_line, tid, huff):
+    """K4's multi-set entry and its plain version on the same inputs, each
+    on its own copy of a random raw reading (the kernel fills its copy's
+    Huffman rows in place)."""
+    rng = np.random.default_rng(len(words))
+    args = [torch.as_tensor(a, dtype=torch.int32, device=dev).contiguous()
+            for a in (words, mant_start, m_line, tid)]
+    raw = torch.as_tensor(rng.integers(0, 1 << 16, np.shape(m_line)),
+                          dtype=torch.int32, device=dev)
+    before = tk4.huffman_decode_sets.launches
+    got = tk4.huffman_decode_sets(*args, raw.clone(), huff)
+    assert tk4.huffman_decode_sets.launches == before + 1
+    want = tk4.huffman_decode_sets_plain(*args, raw.clone(), huff)
     torch.cuda.synchronize()
-    return got.cpu().numpy(), want.cpu().numpy()
+    return got.cpu().numpy(), want.cpu().numpy(), raw.cpu().numpy()
 
 
-@pytest.mark.parametrize("sid", [1, 2, 3])
-@pytest.mark.parametrize("shape", [(300, 128, 128), (70, 100, 6)])
-def test_k4_kernel_equals_plain_on_random_bits(dev, sid, shape):
-    """Random payload bits and sizes of every class (m = 0, 1, [2, 8] with
-    escapes under set 3, 9..16); the narrow shape walks past the payload,
-    where both clip to the last word; H = 100 is no multiple of the tile."""
-    k, h, w32 = shape
-    rng = np.random.default_rng(100 * sid + h)
+def _random_rows(rng, k, h, w32):
     words = rng.integers(0, 1 << 32, (k, w32), dtype=np.uint64) \
         .astype(np.uint32).view(np.int32)
     m_line = rng.choice([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 16], (k, h))
-    mant_start = rng.integers(0, 200, k)
-    hc = tc.make_consts(PRESETS["vbr-huffman"], dev).huff[sid - 1]
-    got, want = _k4_both(dev, words, mant_start, m_line, hc)
+    return words, rng.integers(0, 200, k), m_line, rng.choice([0, 1, 2, 3, 7], k)
+
+
+@pytest.mark.parametrize("sid", [1, 2, 3, 0])
+@pytest.mark.parametrize("shape", [(300, 128, 128), (70, 100, 6)])
+def test_k4_kernel_equals_plain_on_random_bits(dev, sid, shape):
+    """Random payload bits and sizes of every class (m = 0, 1, [2, 8] with
+    escapes under set 3, 9..16) and random tids in {0, 1, 2, 3, 7}, under
+    set `sid` alone (as tableId 1; 0: all three sets); the narrow shape
+    walks past the payload, where both clip to the last word; H = 100 is no
+    multiple of the tile."""
+    k, h, w32 = shape
+    rng = np.random.default_rng(100 * sid + h)
+    huff = tc.make_consts(PRESETS["vbr-huffman"], dev).huff
+    huff = huff if sid == 0 else (huff[sid - 1],)
+    words, mant_start, m_line, tid = _random_rows(rng, k, h, w32)
+    got, want, raw = _k4_both(dev, words, mant_start, m_line, tid, huff)
     np.testing.assert_array_equal(got, want)
+    walked = (tid >= 1) & (tid <= len(huff))
+    np.testing.assert_array_equal(got[~walked], raw[~walked])
+
+
+def test_k4_all_raw_rows_keep_their_reading(dev):
+    """A decode with no Huffman-coded row: the launch returns at once and
+    every row keeps its raw mantissas."""
+    rng = np.random.default_rng(9)
+    huff = tc.make_consts(PRESETS["vbr-huffman"], dev).huff
+    words, mant_start, m_line, _ = _random_rows(rng, 200, 1024, 208)
+    got, want, raw = _k4_both(dev, words, mant_start, m_line,
+                              np.zeros(200, np.int32), huff)
+    np.testing.assert_array_equal(got, raw)
+    np.testing.assert_array_equal(want, raw)
 
 
 def test_k4_stall_on_uncovered_peek(dev):
@@ -241,7 +276,8 @@ def test_k4_stall_on_uncovered_peek(dev):
     words[0] = np.uint32(peek << (32 - lmax)).view(np.int32)
     m_line = rng.choice([0, 2, 2, 2, 5, 9], (64, 128))
     m_line[0] = 2
-    got, want = _k4_both(dev, words, np.zeros(64, np.int32), m_line, hc)
+    got, want, _ = _k4_both(dev, words, np.zeros(64, np.int32), m_line,
+                            np.ones(64, np.int32), (hc,))
     np.testing.assert_array_equal(got, want)
     assert (got[0] == 0).all()
 
@@ -259,11 +295,13 @@ def test_vbr_round_trip_runs_k2_k3_k4(dev):
                   + 0.02 * rng.standard_normal(len(t))], 1)
     cfg = PRESETS["vbr-huffman"]
     counts = [tk2.scatter_words_rows, tk3.vbr_reservoir_scan,
-              tk4.huffman_decode_rows]
+              tk4.huffman_decode_sets]
     before = [c.launches for c in counts]
     data = api.encode_array(x, cfg, device=dev)
+    k4_before = tk4.huffman_decode_sets.launches
     y = api.decode_array(data, "fast", device=dev)[0]
     assert all(c.launches > b for c, b in zip(counts, before))
+    assert tk4.huffman_decode_sets.launches == k4_before + 1   # one per decode
     y_cpu = api.decode_array(api.encode_array(x, cfg, device="cpu"), "fast",
                              device="cpu")[0]
 
@@ -348,7 +386,7 @@ def test_bs_round_trip_runs_its_kernels(dev, huffman):
     x = _strike_clip(1.0)
     cfg = PRESETS["vbr-bs"].replace(use_huffman=huffman)
     counts = ([tk2.scatter_words_rows, tk3.vbr_reservoir_scan,
-               tk4.huffman_decode_rows] if huffman
+               tk4.huffman_decode_sets] if huffman
               else [tk1.water_fill_rows, tk2.scatter_words_rows])
     before = [c.launches for c in counts]
     data = api.encode_array(x, cfg, device=dev)

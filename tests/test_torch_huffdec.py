@@ -4,8 +4,13 @@ version, tac_torch/ops/huffdec.py) against tac's lax.scan LUT walk
 the same payload words: the real streams of tests/test_pallas_huffdec.py
 (sets 1 and 2), forced set-3 rows, random bits under every set, a table
 with an uncovered peek (the ln == 0 stall) and walks that run past the
-payload. Decoded mantissas are integers and must be equal."""
+payload. Then the multi-set entry that a decode calls (each row with its
+own tableId's set), the compact peek LUT the kernel holds in shared memory
+(huffman.compact_dec_lut) and a NumPy emulation of the kernel's step (the
+64-bit bit buffer, the one-load lookup and the branch-free line), against
+the plain walk. Decoded mantissas are integers and must be equal."""
 
+import functools
 import json
 
 import numpy as np
@@ -58,6 +63,33 @@ def _three_ways(words_i32, mant_start, m_line, sid, hc=None):
     return plain.numpy(), np.asarray(scan), np.asarray(kern)
 
 
+@functools.lru_cache(maxsize=1)
+def _castanet_rows():
+    """Rows tac encoded from mono castanets: raw, set-1 and set-2 rows
+    (words int32 [K, W32], the port's config)."""
+    from tools.material import castanets
+
+    x = castanets(JCFG.sample_rate, 0.6)[None, :]
+    words, _ = jc.encode_clip_vbr_packed(jnp.asarray(x, jnp.float32),
+                                         JCFG.replace(n_channels=1))
+    return (np.array(words).reshape(-1, words.shape[-1]).view(np.int32),
+            TCFG.replace(n_channels=1))
+
+
+def _sets_entry(w, mant_start, m_line, tid, tcfg):
+    """The multi-set entry on the CPU (the plain version, no launch), with
+    the raw reading the decode gives it."""
+    c = tc.make_consts(tcfg, CPU)
+    wt, ms = torch.from_numpy(w), torch.from_numpy(mant_start)
+    ml = torch.from_numpy(m_line)
+    raw = tc.read_raw_mantissas(wt, ms.long()[:, None], ml)
+    before = tk4.huffman_decode_sets.launches
+    got = tk4.huffman_decode_sets(wt, ms, ml, torch.from_numpy(tid),
+                                  raw.clone(), c.huff)
+    assert tk4.huffman_decode_sets.launches == before
+    return got.numpy(), raw.numpy(), c.huff
+
+
 @pytest.mark.parametrize("sid", [1, 2])
 def test_plain_k4_on_tac_streams(sid, rng):
     """Rows tac encoded: a stereo tone clip (set 1) and castanets (set 2).
@@ -71,26 +103,44 @@ def test_plain_k4_on_tac_streams(sid, rng):
                + 0.2 * np.sin(2 * np.pi * 2333 * t)
                + 0.05 * rng.standard_normal(len(t)))
         x, jcfg, tcfg = np.stack([sig, 0.8 * sig]), JCFG, TCFG
+        words, _ = jc.encode_clip_vbr_packed(jnp.asarray(x, jnp.float32), jcfg)
+        w = np.array(words).reshape(-1, words.shape[-1]).view(np.int32)
     else:
-        from tools.material import castanets
-
-        x = castanets(fs, 0.6)[None, :]
-        jcfg, tcfg = JCFG.replace(n_channels=1), TCFG.replace(n_channels=1)
-    words, _ = jc.encode_clip_vbr_packed(jnp.asarray(x, jnp.float32), jcfg)
-    w = np.array(words).reshape(-1, words.shape[-1]).view(np.int32)
+        w, tcfg = _castanet_rows()
     tid, mant_start, m_line = _walk_inputs(w, tcfg)
     here = tid == sid
     assert here.any(), f"the stream has no tid={sid} rows"
     plain, scan, kern = _three_ways(w, mant_start, m_line, sid)
     np.testing.assert_array_equal(plain, scan)
     np.testing.assert_array_equal(plain[here], kern[here])
-    # the wrapper runs the plain version for CPU tensors, counting no launch
-    before = tk4.huffman_decode_rows.launches
-    hc = tc.make_consts(tcfg, CPU).huff[sid - 1]
-    got = tk4.huffman_decode_rows(torch.from_numpy(w), torch.from_numpy(mant_start),
-                                  torch.from_numpy(m_line), hc)
-    assert tk4.huffman_decode_rows.launches == before
-    np.testing.assert_array_equal(got.numpy(), plain)
+    # the multi-set entry runs the plain version for CPU tensors, counting
+    # no launch, and gives the set's rows this walk
+    got, _, _ = _sets_entry(w, mant_start, m_line, tid, tcfg)
+    np.testing.assert_array_equal(got[here], plain[here])
+
+
+def test_plain_sets_entry_on_mixed_tac_rows():
+    """tac's castanet rows carry tableIds 0, 1 and 2: the multi-set entry
+    equals the per-set torch.where selection, tac's scan with each row's
+    own set on the rows that carry it, and the raw reading on raw rows."""
+    w, tcfg = _castanet_rows()
+    tid, mant_start, m_line = _walk_inputs(w, tcfg)
+    assert set(np.unique(tid)) == {0, 1, 2}
+    got, raw, huff = _sets_entry(w, mant_start, m_line, tid, tcfg)
+    want = torch.from_numpy(raw)
+    for sid, hc in enumerate(huff, start=1):
+        dec = tk4.huffman_decode_rows_plain(
+            torch.from_numpy(w), torch.from_numpy(mant_start),
+            torch.from_numpy(m_line), hc)
+        want = torch.where(torch.from_numpy(tid == sid)[:, None], dec, want)
+    np.testing.assert_array_equal(got, want.numpy())
+    wj = jnp.asarray(w.view(np.uint32))
+    for sid in (1, 2):
+        here = tid == sid
+        scan = jc._huffman_decode_scan(wj, jnp.asarray(mant_start),
+                                       jnp.asarray(m_line), set_id=sid)
+        np.testing.assert_array_equal(got[here], np.asarray(scan)[here])
+    np.testing.assert_array_equal(got[tid == 0], raw[tid == 0])
 
 
 def test_plain_k4_forced_set3_rows(rng):
@@ -195,3 +245,74 @@ def test_plain_k4_past_the_payload_clips_like_tac(rng):
     scan = jc._huffman_decode_scan(jnp.asarray(words.view(np.uint32)),
                                    jnp.asarray(mant_start), jnp.asarray(m_line))
     np.testing.assert_array_equal(plain, np.asarray(scan))
+
+
+def _stall_pak():
+    """Set 1's packed LUT with its m = 2 table's highest longest codeword
+    dropped: its peeks are uncovered (length 0, symbol 0)."""
+    pak = np.array(th.packed_dec_lut(1))
+    lmax = pak.shape[1].bit_length() - 1
+    pak[0, -(1 << (lmax - int((pak[0] >> 16).max()))):] = 0
+    return pak
+
+
+@pytest.mark.parametrize("which", ["set1", "set2", "set3", "stall"])
+def test_compact_lut_gives_every_peek(which):
+    """For every table and every lmax-bit peek p, the compact entry at
+    off_t + (p >> (lmax - w_t)) holds the length and symbol of dec_pak[t][p];
+    w_t is the table's own longest codeword."""
+    pak = _stall_pak() if which == "stall" else th.packed_dec_lut(int(which[-1]))
+    lut, tab = th.compact_dec_lut(pak)
+    assert lut.dtype == np.int16 and lut.size % 8 == 0
+    lmax = pak.shape[1].bit_length() - 1
+    peek = np.arange(1 << lmax)
+    for t in range(th.N_TAB):
+        off, w = int(tab[t]) >> 5, int(tab[t]) & 31
+        assert w == int((pak[t] >> 16).max())
+        e = lut[off + (peek >> (lmax - w))].astype(np.int64)
+        np.testing.assert_array_equal(e >> 9, pak[t] >> 16)
+        np.testing.assert_array_equal(e & 511, pak[t] & 0xFFFF)
+    if which == "stall":
+        assert (lut[int(tab[0]) >> 5:][:1 << (int(tab[0]) & 31)] == 0).any()
+
+
+def test_compact_lut_refuses_a_lut_that_is_not_block_constant():
+    pak = np.array(th.packed_dec_lut(1))
+    pak[0, 1] = pak[0, -1]             # inside the first codeword's block
+    with pytest.raises(ValueError, match="not constant"):
+        th.compact_dec_lut(pak)
+
+
+def test_compact_luts_of_all_sets_fit_a_block():
+    """The three trained sets' compact LUTs, which the kernel holds in one
+    block's shared memory: 44 464 entries, under 89 KB."""
+    sizes = [th.compact_dec_lut(th.packed_dec_lut(s))[0].nbytes
+             for s in (1, 2, 3)]
+    assert sum(sizes) <= 89_000
+    widths = [[int(t) & 31 for t in th.compact_dec_lut(th.packed_dec_lut(s))[1]]
+              for s in (1, 2, 3)]
+    assert widths == [[4, 8, 9, 10, 11, 12, 13], [4, 7, 10, 10, 12, 12, 13],
+                      [4, 8, 8, 10, 11, 11, 12]]
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_raw"])
+def test_sets_entry_writes_into_the_raw_reading(case, rng):
+    """The multi-set entry on the CPU keeps the kernel's contract: it
+    writes each Huffman row's walk into mant_raw and returns that tensor;
+    raw rows and rows whose tid names no loaded set keep their reading."""
+    words, mant_start, m_line = _random_rows(rng, k=32, h=64)
+    tid = (rng.choice([0, 1, 2, 3, 7], 32) if case == "mixed"
+           else np.zeros(32)).astype(np.int32)
+    huff = tuple(th.device_tables(th.host_tables(s), CPU) for s in (1, 2))
+    raw = rng.integers(0, 1 << 16, m_line.shape).astype(np.int32)
+    mant_raw = torch.from_numpy(raw.copy())
+    args = [torch.from_numpy(a) for a in (words, mant_start, m_line)]
+    got = tk4.huffman_decode_sets(*args, torch.from_numpy(tid), mant_raw, huff)
+    assert got is mant_raw
+    want = raw.copy()
+    for sid, hc in enumerate(huff, start=1):
+        here = tid == sid
+        want[here] = tk4.huffman_decode_rows_plain(*args, hc).numpy()[here]
+    np.testing.assert_array_equal(got.numpy(), want)
+    keep = (tid < 1) | (tid > len(huff))
+    np.testing.assert_array_equal(got.numpy()[keep], raw[keep])

@@ -14,7 +14,6 @@ import torch
 from tac import codec as jc
 from tac import huffman as jh
 from tac.config import PRESETS as JPRESETS
-from tac.ops.pallas_huffdec import _canon_consts
 from tac_torch import codec as tc
 from tac_torch import consts as tconsts
 from tac_torch import huffman as th
@@ -59,9 +58,9 @@ def test_table_files_equal_tac(sid):
 
 @pytest.mark.parametrize("sid", SETS)
 def test_table_constants_equal_tac(sid):
-    """cost table, encode arrays, packed decode LUT; the canonical decode
-    constants against tac's (m, l, first, last, base) pairs; and tac's arrays
-    uploaded by device_tables equal the port's own, leaf by leaf."""
+    """cost table, encode arrays, packed decode LUT; the compact peek LUT
+    against tac's per-m LUTs; and tac's arrays uploaded by device_tables
+    equal the port's own, leaf by leaf."""
     want = tac_tables(sid)
     got = th.host_tables(sid)
     assert set(got) == set(th.HUFF_LEAVES)
@@ -69,20 +68,15 @@ def test_table_constants_equal_tac(sid):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert th._dec_luts(sid).keys() == jh._dec_luts(sid).keys()
 
-    canon, perm = th.canon_from_lut(got["dec_pak"])
-    pairs, _, escs = _canon_consts(sid)
-    seen = np.zeros(canon.shape[:2], bool)
-    for m, ln, first, last, base in pairs:
-        assert tuple(canon[m - 2, ln]) == (first, last, base)
-        seen[m - 2, ln] = True
-    assert (canon[~seen] == (1, 0, 0)).all()       # lengths without codes
-    tabs = jh.load_tables(sid)
-    for m in range(th.MIN_M, th.MAX_M + 1):
-        lens, codes = tabs[m]["lengths"], tabs[m]["codes"]
-        order = sorted((s for s in range(len(lens)) if lens[s]),
-                       key=lambda s: (lens[s], codes[s]))
-        np.testing.assert_array_equal(perm[m - 2, :len(order)], order)
-        assert escs[m] == 1 << m
+    # the compact peek LUT: each table at its own width, tac's per-m LUTs
+    lut, tab = th.compact_dec_lut(got["dec_pak"])
+    for m, (sym_lut, len_lut, width, esc) in jh._dec_luts(sid).items():
+        off = int(tab[m - 2]) >> 5
+        assert int(tab[m - 2]) & 31 == width
+        entries = lut[off:off + (1 << width)].astype(np.int64)
+        np.testing.assert_array_equal(entries >> 9, len_lut)
+        np.testing.assert_array_equal(entries & 511, sym_lut)
+        assert esc == 1 << m
 
     own = tc.make_consts(TPRESETS["vbr-huffman"], CPU).huff[sid - 1]
     fed = th.device_tables(want, CPU)
@@ -99,10 +93,10 @@ def test_consts_carry_every_set_only_for_huffman_configs():
     assert tc.make_consts(TPRESETS["stereo44-128"], CPU).huff is None
     arrays = tconsts.host_arrays(TPRESETS["vbr-huffman"])
     assert len(arrays["huffman"]) == 3
-    with pytest.raises(ValueError, match="canonical-contiguous"):
+    with pytest.raises(ValueError, match="not constant"):
         bad = np.array(arrays["huffman"][0]["dec_pak"])
-        bad[0, 0] = bad[0, -1]                     # splits a length's range
-        th.canon_from_lut(bad)
+        bad[0, 0] = bad[0, -1]                     # splits a codeword's block
+        th.compact_dec_lut(bad)
 
 
 @pytest.mark.parametrize("sid", SETS)

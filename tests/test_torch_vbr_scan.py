@@ -189,10 +189,10 @@ def test_reservoir_chain_parity_and_uniform(rng):
 def test_plain_k3_warm_start_setting_is_decision_exact(rng, monkeypatch,
                                                        rounds, n_bisect):
     """The chain's integers are the same with K3's warm start (1 × 12, tac's
-    K3 setting), K1's 2 × 20 and a cold start, on the random, per-frame
-    n_lines, joint 50-band and FMA-row chains: the kernel relies on tac's
-    claim that the setting is decision-exact. The trip counter shows the
-    setting really changed the walk."""
+    K3 setting), 2 × 20 (tac's K1 setting) and a cold start, on the random,
+    per-frame n_lines, joint 50-band and FMA-row chains: the kernel relies
+    on tac's claim that the setting is decision-exact. The trip counter
+    shows the setting really changed the walk."""
     fma = (np.array([[[22.924339294433594, 89.14434051513672]]], np.float32),
            np.zeros((1, 1, 2, 7), np.int32), np.array([1, 2], np.int32),
            np.zeros(1, np.int32), 24, 96)
