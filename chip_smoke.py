@@ -51,11 +51,26 @@ Phases, each of which fails the run (non-zero exit) on error:
      band widths, K2 at 2 101 fields and K4 behind the state-selected band
      map against their plain versions, then the path batched and per clip,
      K2, K3 and K4 counted. Both block-switch paths compare a batched decode
-     with a solo decode of the same words and the card with the CPU run.
+     with a solo decode of the same words and the card with the CPU run;
+ 10. mid/side joint stereo at full width, nothing cut: stereo44-128-ms and
+     vbr-ms on the phase-4 clips, ms-bs and vbr-ms-bs on the switching
+     clips. K1 on the real joint rows [10 352, 50] at 2·budget (shared
+     widths; per-row state-selected widths for ms-bs), K3 with one lane
+     per pair, [647, 16, 50], base 2·budget (shared widths; per-frame
+     widths for vbr-ms-bs; the plain version once per family on all 16
+     lanes), K2 at each family's capacity and K4 on the VBR families'
+     words, each equal to its plain version; then each path batched and
+     per clip with its counters, a batched decode against a solo decode,
+     card vs CPU on clip 0, and the M/S vs L/R SNR at the rates the two
+     presets run (printed, not gated);
+ 11. parity on the card: the nine golden streams of goldens/streams.json
+     (config1/2/3/5/6 and the M/S config7-10) encoded in parity precision
+     on the card must hash to their goldens.
 It prints "profile", "main_path", "profile_vbr", "vbr_path", "mdct_path",
-"profile_bs", "bs_path", "profile_bs_vbr", "bs_vbr_path" and "kernels" JSON
-lines, and last {"ok": true, "device": {...}}. Without CUDA, or without the
-tac_torch package beside it, it exits non-zero and prints no result.
+"profile_bs", "bs_path", "profile_bs_vbr", "bs_vbr_path", one "ms_path" per
+M/S family, two "ms_vs_lr", "parity_on_card" and "kernels" JSON lines, and
+last {"ok": true, "device": {...}}. Without CUDA, or without the tac_torch
+package beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -257,6 +272,82 @@ def card_vs_cpu(x0, cfg, what: str):
     return gpu, cpu
 
 
+def kernel_counters() -> dict:
+    """The launch-counted wrapper of each codec kernel, by name."""
+    from tac_torch.ops import alloc as k1
+    from tac_torch.ops import huffdec as k4
+    from tac_torch.ops import pack as k2
+    from tac_torch.ops import vbr_scan as k3
+
+    return {"water_fill": k1.water_fill_rows,
+            "scatter_words": k2.scatter_words_rows,
+            "vbr_scan": k3.vbr_reservoir_scan,
+            "huffdec": k4.huffman_decode_sets}
+
+
+def per_chunk(fn, *ts, rows: int = 0):
+    """A call of fn on every chunk of `rows` rows of the tensors ts (the
+    codec's ENC_CHUNK by default), as an encode launches it."""
+    from tac_torch import codec
+
+    chunks = list(zip(*(t_.split(rows or codec.ENC_CHUNK) for t_ in ts)))
+    return lambda: [fn(*c_) for c_ in chunks]
+
+
+def drive_path(xs: np.ndarray, cfg, enc, dec, what: str, card: str):
+    """One codec path on clips xs [B, C, T]: the batched device encode and
+    decode (CUDA events), then encode_array -> bytes -> decode_array per
+    clip; the launch counters are zeroed just before and read just after.
+    Checks every decode (shape, finite, SNR), a batched decode against a
+    solo decode of the same words (f32 IMDCT matmuls of two batch shapes,
+    within 1e-5) and the card against the CPU on clip 0 (2 s). Returns
+    (batched words, launches, the path's record with one profiled encode)."""
+    import torch
+
+    from tac_torch import api
+
+    dev = torch.device("cuda")
+    xsd = torch.as_tensor(xs, device=dev)
+    clips, t = xs.shape[0], xs.shape[-1]
+    audio_s = clips * t / cfg.sample_rate
+    counters = kernel_counters()
+    with torch.no_grad():
+        enc(xsd, cfg, dev)                                  # warm
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        (words, nbits), enc_ms = timed(lambda: enc(xsd, cfg, dev))
+        y_batch, dec_ms = timed(lambda: dec(words, cfg, t, dev))
+        t0 = time.perf_counter()
+        streams = [api.encode_array(xs[i].T, cfg) for i in range(clips)]
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = [api.decode_array(s_, "fast")[0] for s_ in streams]
+        t_dec = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        print(f"{what} path launches: {launches}")
+        snrs = decode_checks(xs, decoded, what)
+        y0 = dec(words[0], cfg, t, dev)
+        check(float((y0 - y_batch[0]).abs().max()) < 1e-5,
+              f"batched {what} decode differs from the solo decode of the "
+              "same words")
+        snr_batch = decode_checks(xs, y_batch.cpu().numpy().swapaxes(1, 2),
+                                  f"batched {what}")
+        gpu_snr, cpu_snr = card_vs_cpu(xs[0].T[: 2 * cfg.sample_rate], cfg, what)
+        prof = profile_device(lambda: enc(xsd, cfg, dev))
+    return words, launches, {
+        "clips": clips, "clip_seconds": t / cfg.sample_rate,
+        "device_encode_ms": enc_ms, "device_decode_ms": dec_ms,
+        "audio_s_per_s_device": audio_s / (enc_ms / 1e3),
+        "audio_s_per_s_device_decode": audio_s / (dec_ms / 1e3),
+        "audio_s_per_s_full_encode": audio_s / t_enc,
+        "audio_s_per_s_full_decode": audio_s / t_dec,
+        "launches": launches, "snr_db": snrs, "snr_db_batched": snr_batch,
+        "clip0_2s_snr_card": gpu_snr, "clip0_2s_snr_cpu": cpu_snr,
+        "stream_bytes": sum(len(s_) for s_ in streams), "profile": prof,
+        "card": card}
+
+
 def phase_k5(x: np.ndarray, card: str) -> dict:
     """Phase 7: K5 against its plain version, its times, and the filterbank
     path. x [B, 2, T] float32. Returns K5's entry of the kernels line."""
@@ -379,7 +470,7 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
     launches of each path, the worst error and the times at these shapes."""
     import torch
 
-    from tac_torch import api, bitalloc, codec
+    from tac_torch import bitalloc, codec
     from tac_torch import blockswitch as bsw
     from tac_torch.config import PRESETS
     from tac_torch.ops import alloc as k1
@@ -391,63 +482,9 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
     dev = torch.device("cuda")
     cfg_c = PRESETS["vbr-bs"]
     cfg_b = cfg_c.replace(use_huffman=False)
-    clips, t = xs.shape[0], xs.shape[-1]
-    audio_s = clips * t / cfg_b.sample_rate
+    clips = xs.shape[0]
     xsd = torch.as_tensor(xs, device=dev)
-    x0 = xs[0].T[: 2 * cfg_b.sample_rate]
-    counters = {"water_fill": k1.water_fill_rows,
-                "scatter_words": k2.scatter_words_rows,
-                "vbr_scan": k3.vbr_reservoir_scan,
-                "huffdec": k4.huffman_decode_sets}
     ch = codec.ENC_CHUNK
-
-    def zero_counters():
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-
-    def per_chunk(fn, *ts):
-        chunks = list(zip(*(t_.split(ch) for t_ in ts)))
-        return lambda: [fn(*c_) for c_ in chunks]
-
-    def drive(cfg, enc, dec, what):
-        """Batched device encode and decode (CUDA events), then the entry
-        points per clip; counters zeroed just before, read just after."""
-        enc(xsd, cfg, dev)                                  # warm
-        zero_counters()
-        (words, nbits), enc_ms = timed(lambda: enc(xsd, cfg, dev))
-        y_batch, dec_ms = timed(lambda: dec(words, cfg, t, dev))
-        t0 = time.perf_counter()
-        streams = [api.encode_array(xs[i].T, cfg) for i in range(clips)]
-        t_enc = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        decoded = [api.decode_array(s_, "fast")[0] for s_ in streams]
-        t_dec = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
-        print(f"{what} path launches: {launches}")
-        snrs = decode_checks(xs, decoded, what)
-        # a batched decode against a solo decode of the same words (clip 0):
-        # f32 IMDCT matmuls of two batch shapes, within 1e-5
-        y0 = dec(words[0], cfg, t, dev)
-        check(float((y0 - y_batch[0]).abs().max()) < 1e-5,
-              f"batched {what} decode differs from the solo decode of the "
-              "same words")
-        snr_batch = decode_checks(xs, y_batch.cpu().numpy().swapaxes(1, 2),
-                                  f"batched {what}")
-        gpu_snr, cpu_snr = card_vs_cpu(x0, cfg, what)
-        prof = profile_device(lambda: enc(xsd, cfg, dev))
-        return words, launches, prof, {
-            "clips": clips, "clip_seconds": t / cfg.sample_rate, "rows": rows,
-            "device_encode_ms": enc_ms, "device_decode_ms": dec_ms,
-            "audio_s_per_s_device": audio_s / (enc_ms / 1e3),
-            "audio_s_per_s_device_decode": audio_s / (dec_ms / 1e3),
-            "audio_s_per_s_full_encode": audio_s / t_enc,
-            "audio_s_per_s_full_decode": audio_s / t_dec,
-            "state_share": state_share, "clips_switching": clips_switching,
-            "launches": launches, "snr_db": snrs,
-            "snr_db_batched": snr_batch, "clip0_2s_snr_card": gpu_snr,
-            "clip0_2s_snr_cpu": cpu_snr,
-            "stream_bytes": sum(len(s_) for s_ in streams), "card": card}
 
     # ---- 8. material, window states, K1 / K2 at the block-switch shapes
     cb = bsw.make_bs_consts(cfg_b, dev)
@@ -472,8 +509,8 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
             ll, sl, ls, ss = bsw.analyze_frame_bs(fr, st, cfg_b, cb)
             smr = bsw.select_by_state(st, sl, ss)
             nl = bsw.state_n_lines(st, cb)
-            bc = bsw.quantize_both(ll, ls, bsw.allocate_rows_bs(smr, nl, cfg_b, cb),
-                                   st, cfg_b, cb)
+            alloc = codec.allocate_rows(smr, cfg_b, cb.cl, nl)
+            bc = bsw.quantize_both(ll, ls, alloc, st, cfg_b, cb)
             smr_q.append(bitalloc.snap_smr(smr).float())
             nl_rows.append(nl)
             fields.append(bitpack.field_words(
@@ -506,13 +543,17 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
             c0, c1, word0), 50)
         del c0, c1, word0, smr_q, nl_rows
 
-        _, launches_b, prof_b, path_b = drive(
-            cfg_b, bsw.encode_clip_bs_packed, bsw.decode_clip_bs_packed, "bs")
+        _, launches_b, path_b = drive_path(
+            xs, cfg_b, bsw.encode_clip_bs_packed, bsw.decode_clip_bs_packed,
+            "bs", card)
+        prof_b = path_b.pop("profile")
     check(launches_b["water_fill"] > 0 and launches_b["scatter_words"] > 0,
           "a kernel of the bs path was never launched")
     print(json.dumps({"profile_bs": {"what": "one batched bs device encode",
                                      **prof_b}}))
     print(json.dumps({"bs_path": {"config": "vbr-bs without Huffman, fast",
+                                  "rows": rows, "state_share": state_share,
+                                  "clips_switching": clips_switching,
                                   **path_b}}))
 
     # ---- 9. the combo: K3 with per-frame n_lines, K2 at 2 101 fields, K4
@@ -524,7 +565,7 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
         frames, states = bsw._frames_and_states(xsd, cfg_c, cc, dev)
         st_lanes = states.reshape(lanes, n_fr)
         ll, ls, smr_fl, bh_fl = bsw._bs_vbr_phase1(
-            frames.reshape(lanes, n_fr, -1), st_lanes, cfg_c, cc)
+            frames.reshape(lanes, n_fr, 1, -1), st_lanes, cfg_c, cc)
         del frames
         smr_fl = bitalloc.snap_smr(smr_fl).float().contiguous()
         nl_fl = bsw.state_n_lines(st_lanes.transpose(0, 1), cc)
@@ -555,9 +596,10 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
         check(k2c_err == 0, "K2 differs from its plain version at combo shapes")
         del ll, ls, smr_fl, bh_fl, nl_fl, bc, c0, c1, word0, k3_got, k3_want
 
-        words, launches_c, prof_c, path_c = drive(
-            cfg_c, bsw.encode_clip_bs_vbr_packed, bsw.decode_clip_bs_vbr_packed,
-            "bs x vbr")
+        words, launches_c, path_c = drive_path(
+            xs, cfg_c, bsw.encode_clip_bs_vbr_packed,
+            bsw.decode_clip_bs_vbr_packed, "bs x vbr", card)
+        prof_c = path_c.pop("profile")
         check(all(launches_c[k_] > 0
                   for k_ in ("scatter_words", "vbr_scan", "huffdec")),
               "a kernel of the bs x vbr path was never launched")
@@ -585,7 +627,9 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
         "what": "one batched bs x vbr device encode", **prof_c}}))
     print(json.dumps({"bs_vbr_path": {
         "config": "vbr-bs fast", "lanes": lanes, "frames": n_fr,
-        "tid_share": tid_share, "sets_walked": sets_present, **path_c}}))
+        "rows": rows, "state_share": state_share,
+        "clips_switching": clips_switching, "tid_share": tid_share,
+        "sets_walked": sets_present, **path_c}}))
     return {
         "water_fill": {"launches_bs_path": launches_b["water_fill"],
                        "max_abs_err": k1_err, "ms_bs_path": k1_bs_ms,
@@ -603,6 +647,349 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
                     "max_abs_err": k4_err, "ms_bs_vbr_path": k4_ms,
                     "sets_walked_bs_vbr_path": sets_present},
     }
+
+
+def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
+    """Phase 10: mid/side joint stereo at full width, nothing cut. The
+    fixed-rate and VBR presets code the correlated clips x [B, 2, T], the
+    two block-switch presets the switching clips xs. Per family: its
+    kernels against their plain versions at its own shapes (K1 on the
+    joint [R/2, 50] rows, K3 with one lane per pair over 50 bands, K2 at
+    its capacity, K4 on its words), then the path (``drive_path``). lr_ref
+    maps an L/R preset to (per-clip SNRs, stream bytes) of its path on x.
+    Returns per kernel what this phase measured."""
+    import torch
+
+    from tac_torch import bitalloc, codec
+    from tac_torch import blockswitch as bsw
+    from tac_torch.config import PRESETS
+    from tac_torch.ops import alloc as k1
+    from tac_torch.ops import bitpack
+    from tac_torch.ops import huffdec as k4
+    from tac_torch.ops import pack as k2
+    from tac_torch.ops import vbr_scan as k3
+
+    dev = torch.device("cuda")
+    ch = codec.ENC_CHUNK
+    out = {"water_fill": {}, "scatter_words": {}, "vbr_scan": {}, "huffdec": {}}
+    err = dict.fromkeys(out, 0)
+
+    def k2_case(fam, vals_wids, cap_bits):
+        """K2 on the first chunk's fields of family `fam` at its capacity."""
+        c0, c1, w0 = bitpack.field_words(*vals_wids)[:3]
+        w32 = -(-cap_bits // 32)
+        e = worst_err(k2.scatter_words_rows(c0, c1, w0, w32=w32),
+                      k2.scatter_words_rows_plain(c0, c1, w0, w32=w32))
+        print(f"  K2 {fam} chunk fields: {tuple(c0.shape)} -> W32 {w32} "
+              f"max_abs_err {e}")
+        check(e == 0, f"K2 differs from its plain version at {fam} shapes")
+        err["scatter_words"] = max(err["scatter_words"], e)
+        out["scatter_words"][f"w32_{fam}"] = w32
+        out["scatter_words"][f"ms_{fam}_chunk_launch"] = cuda_ms(
+            lambda: k2.scatter_words_rows(c0, c1, w0, w32=w32), 50)
+
+    def k1_case(fam, smr_q, nl, budget):
+        """K1 on an M/S family's joint rows [R/2, 50], one launch."""
+        bud = torch.full((smr_q.shape[0],), budget, dtype=torch.int32,
+                         device=dev)
+        got = k1.water_fill_rows(smr_q, nl, bud)
+        k1.water_fill_rows_plain.trips = 0
+        want, plain_ms = timed(lambda: k1.water_fill_rows_plain(smr_q, nl, bud))
+        trips = k1.water_fill_rows_plain.trips / smr_q.shape[0]
+        e = worst_err(got, want)
+        print(f"  K1 {fam} joint rows {tuple(smr_q.shape)}, n_lines "
+              f"{tuple(nl.shape)}, budget {budget}: max_abs_err {e}")
+        check(e == 0, f"K1 differs from its plain version at {fam} shapes")
+        err["water_fill"] = max(err["water_fill"], e)
+        one_ms = cuda_ms(lambda: k1.water_fill_rows(smr_q, nl, bud), 50)
+        nbytes = (2 * smr_q.numel() + smr_q.shape[0] + nl.numel()) * 4
+        nops = int(got.sum().item()) * (1 + 2 * int(np.ceil(np.log2(
+            smr_q.shape[1]))))
+        b, b_by = bound(nbytes, nops)
+        out["water_fill"].update({
+            f"ms_{fam}_one_launch": one_ms, f"plain_ms_{fam}": plain_ms,
+            f"trips_per_row_{fam}": trips, f"bound_ms_{fam}_one_launch": b,
+            f"bound_by_{fam}": b_by, f"rows_{fam}": smr_q.shape[0]})
+        return bud
+
+    def k3_case(fam, smr, bh, nl, base, cap):
+        """K3 with one lane per pair over 50 bands, whole clips; the plain
+        run (once per family, all lanes) counts the chain's trips."""
+        smr_q = bitalloc.snap_smr(smr).float().contiguous()
+        res0 = torch.zeros(smr.shape[1], dtype=torch.int32, device=dev)
+        got = k3.vbr_reservoir_scan(smr_q, bh, nl, res0, base=base, cap=cap)
+        k1.water_fill_rows_plain.trips = 0
+        want, plain_ms = timed(lambda: k3.vbr_reservoir_scan_plain(
+            smr_q, bh, nl, res0, base=base, cap=cap))
+        f_, lanes_ = smr.shape[:2]
+        trips = k1.water_fill_rows_plain.trips / (f_ * lanes_)
+        e = worst_err(got, want)
+        print(f"  K3 {fam} run: {tuple(smr_q.shape)} x {bh.shape[3]} columns, "
+              f"n_lines {tuple(nl.shape)}, base {base}, cap {cap}: "
+              f"max_abs_err {e} (plain version on all {lanes_} lanes)")
+        check(e == 0, f"K3 differs from its plain version at {fam} shapes")
+        err["vbr_scan"] = max(err["vbr_scan"], e)
+        k3_ms = cuda_ms(lambda: k3.vbr_reservoir_scan(
+            smr_q, bh, nl, res0, base=base, cap=cap), 5, warmup=1)
+        nbytes = (smr_q.numel() + bh.numel() + got[0].numel()
+                  + 3 * f_ * lanes_ + nl.numel() + lanes_) * 4
+        nops = (int(got[0].sum().item()) * (1 + 2 * int(np.ceil(np.log2(
+            smr.shape[2])))) + smr.numel() * (1 + bh.shape[3] // 7))
+        b, b_by = bound(nbytes, nops)
+        out["vbr_scan"].update({
+            f"ms_{fam}": k3_ms, f"us_per_frame_{fam}": k3_ms * 1e3 / f_,
+            f"trips_per_frame_{fam}": trips,
+            f"us_per_trip_{fam}": k3_ms * 1e3 / (f_ * trips),
+            f"plain_ms_{fam}": plain_ms, f"bound_ms_{fam}": b,
+            f"bound_by_{fam}": b_by, f"lanes_{fam}": lanes_})
+        return got
+
+    def k4_case(fam, words, head, huff):
+        """K4 on the batched encode's words [B, 2, F, W32] and their head
+        (tids, m_line, mant_start); both rows of a pair carry the pair's
+        tableId."""
+        tids, m_line, mant_start = head
+        tp = tids.reshape(-1, 2, words.shape[-2])
+        check(bool((tp[:, 0] == tp[:, 1]).all()),
+              f"{fam}: a pair's rows carry different tableIds")
+        wf = words.reshape(-1, words.shape[-1]).contiguous()
+        raw = codec.read_raw_mantissas(wf, mant_start[:, None].long(), m_line)
+        e = worst_err(
+            k4.huffman_decode_sets(wf, mant_start, m_line, tids, raw.clone(), huff),
+            k4.huffman_decode_sets_plain(wf, mant_start, m_line, tids,
+                                         raw.clone(), huff))
+        share = (torch.bincount(tids.long(), minlength=4).float()
+                 / tids.numel()).tolist()
+        print(f"  K4 {fam} run: words {tuple(wf.shape)} tid shares "
+              f"{[round(v, 4) for v in share]} max_abs_err {e}")
+        check(e == 0, f"K4 differs from its plain version at {fam} shapes")
+        check(sum(share[1:]) > 0, f"no Huffman-coded frame in the {fam} run")
+        err["huffdec"] = max(err["huffdec"], e)
+        out["huffdec"][f"ms_{fam}"] = cuda_ms(lambda: k4.huffman_decode_sets(
+            wf, mant_start, m_line, tids, raw, huff), 20)
+        return share
+
+    def path(fam, xs_, cfg, enc, dec, need, extra):
+        """Drive the family's path and print its ms_path line."""
+        _, launches, rec = drive_path(xs_, cfg, enc, dec, fam, card)
+        check(all(launches[k_] > 0 for k_ in need),
+              f"a kernel of the {fam} path was never launched")
+        for k_ in need:
+            out[k_][f"launches_{fam.replace('-', '_')}_path"] = launches[k_]
+        print(json.dumps({"ms_path": {"family": fam, **extra, **rec}}))
+        return rec
+
+    def vs_lr(rec, lr):
+        """M/S against L/R on the same clips at the rates the two run."""
+        snr_lr, bytes_lr = lr_ref[lr]
+        gain = np.mean(rec["snr_db"]) - np.mean(snr_lr)
+        print(f"{lr} vs its M/S preset: mean SNR L/R {np.mean(snr_lr):.4f} dB, "
+              f"M/S {np.mean(rec['snr_db']):.4f} dB ({gain:+.4f} dB), bytes "
+              f"M/S / L/R {rec['stream_bytes'] / bytes_lr:.4f}")
+        return {"lr_preset": lr, "snr_db_mean_lr": float(np.mean(snr_lr)),
+                "snr_db_mean_ms": float(np.mean(rec["snr_db"])),
+                "gain_db": float(gain),
+                "bytes_ms_over_lr": rec["stream_bytes"] / bytes_lr}
+
+    xd = torch.as_tensor(x, device=dev)
+    xsd = torch.as_tensor(xs, device=dev)
+
+    # ---- stereo44-128-ms: K1 at [R/2, 50], K2 at the doubled capacity
+    cfg = PRESETS["stereo44-128-ms"]
+    c = codec.make_consts(cfg, dev)
+    with torch.no_grad():
+        fr = codec.fb.frame_signal(codec.input_signal(xd, cfg, c.dtype, dev),
+                                   cfg.n_mdct_lines).transpose(-3, -2)
+        smr_j, fields0 = [], None
+        for fc in fr.reshape(-1, fr.shape[-1]).split(ch):
+            lines, smr = codec.analyze_frame(fc, cfg, c)
+            smr_j.append(bitalloc.snap_smr(smr).float().reshape(-1, 50))
+            if fields0 is None:
+                code = codec.quantize_given_alloc(
+                    lines, codec.allocate_rows(smr, cfg, c), cfg, c)
+                fields0 = codec.payload_fields(code, cfg, c)
+        del fr, lines, smr
+        smr_j = torch.cat(smr_j).contiguous()
+        nl2 = torch.cat([c.n_lines, c.n_lines]).contiguous()
+        bud = k1_case("ms", smr_j, nl2, 2 * c.budget)
+        # the path's launch shape: one call per chunk of ENC_CHUNK / 2 pairs
+        out["water_fill"]["ms_ms_path"] = cuda_ms(per_chunk(
+            lambda s_, b_: k1.water_fill_rows(s_, nl2, b_), smr_j, bud,
+            rows=ch // 2), 50)
+        k2_case("ms", fields0, codec.payload_capacity_bits(cfg, c))
+        del smr_j, fields0, code
+    rec = path("ms", x, cfg, codec.encode_clip_packed, codec.decode_clip_packed,
+               ("water_fill", "scatter_words"), {"config": "stereo44-128-ms fast"})
+    print(json.dumps({"ms_vs_lr": {"family": "ms", **vs_lr(rec, "stereo44-128")}}))
+
+    # ---- vbr-ms: K3 with 16 pair lanes x 50 bands, K2, K4
+    cfg = PRESETS["vbr-ms"]
+    c = codec.make_consts(cfg, dev)
+    base = 2 * c.budget
+    with torch.no_grad():
+        frames = codec.fb.frame_signal(codec.input_signal(xd, cfg, c.dtype, dev),
+                                       cfg.n_mdct_lines)
+        lines, smr, bh = codec._vbr_phase1_lanes(codec.to_lanes(frames, cfg),
+                                                 cfg, c)
+        del frames
+        got = k3_case("vbr_ms", smr, bh, torch.cat([c.n_lines, c.n_lines]),
+                      base, cfg.reservoir_factor * base)
+        al_rows, tid_rows = codec.rows_of_chain(got[0], got[1], 2)
+        code = codec.quantize_given_alloc(lines[:ch], al_rows[:ch], cfg, c)
+        k2_case("vbr_ms", codec.payload_fields_vbr(code, tid_rows[:ch], cfg, c),
+                codec.payload_capacity_bits(cfg, c))
+        del lines, smr, bh, got, al_rows, tid_rows, code
+    rec = path("vbr-ms", x, cfg, codec.encode_clip_vbr_packed,
+               codec.decode_clip_vbr_packed,
+               ("scatter_words", "vbr_scan", "huffdec"),
+               {"config": "vbr-ms fast", "lanes": x.shape[0]})
+    with torch.no_grad():
+        words = codec.encode_clip_vbr_packed(xd, cfg, dev)[0]
+        _, tids, _, _, m_line, mant_start = codec._vbr_head(
+            words.reshape(-1, words.shape[-1]).contiguous(), cfg, c)
+        share = k4_case("vbr_ms", words, (tids, m_line, mant_start), c.huff)
+        del words, tids, m_line, mant_start
+    print(json.dumps({"ms_vs_lr": {"family": "vbr-ms", "tid_share": share,
+                                   **vs_lr(rec, "vbr-huffman")}}))
+
+    # ---- ms-bs: shared states, K1 with per-row widths [R/2, 50], K2
+    cfg = PRESETS["ms-bs"]
+    cb = bsw.make_bs_consts(cfg, dev)
+    with torch.no_grad():
+        frames, states = bsw._frames_and_states(xsd, cfg, cb, dev)
+        sp = states.reshape(-1, 2, states.shape[-1])
+        check(bool((sp[:, 0] == sp[:, 1]).all()),
+              "ms-bs: a pair's channels carry different window states")
+        state_share = (torch.bincount(states.reshape(-1).long(), minlength=4)
+                       .float() / states.numel()).tolist()
+        print(f"ms-bs window states (LONG, START, SHORT, STOP) of the M/S "
+              f"signal: {[round(v, 4) for v in state_share]}")
+        fr = frames.transpose(-3, -2).reshape(-1, frames.shape[-1])
+        st = states.transpose(-2, -1).reshape(-1)
+        del frames
+        smr_j, nl_j, fields0 = [], [], None
+        for fc, sc in zip(fr.split(ch), st.split(ch)):
+            ll, sl, ls, ss = bsw.analyze_frame_bs(fc, sc, cfg, cb)
+            smr = bsw.select_by_state(sc, sl, ss)
+            nl = bsw.state_n_lines(sc, cb)
+            smr_j.append(bitalloc.snap_smr(smr).float().reshape(-1, 50))
+            nl_j.append(nl.reshape(-1, 50))
+            if fields0 is None:
+                bc = bsw.quantize_both(ll, ls, codec.allocate_rows(
+                    smr, cfg, cb.cl, nl), sc, cfg, cb)
+                fields0 = bsw.payload_fields_bs(bc, cfg, cb)
+        del fr, st, ll, sl, ls, ss, smr
+        smr_j, nl_j = torch.cat(smr_j).contiguous(), torch.cat(nl_j).contiguous()
+        k1_case("ms_bs", smr_j, nl_j, 2 * cb.cl.budget)
+        k2_case("ms_bs", fields0, bsw.capacity_bits_bs(cfg))
+        del smr_j, nl_j, fields0, bc
+    path("ms-bs", xs, cfg, bsw.encode_clip_bs_packed, bsw.decode_clip_bs_packed,
+         ("water_fill", "scatter_words"),
+         {"config": "ms-bs fast", "state_share": state_share})
+
+    # ---- vbr-ms-bs: K3 with per-frame widths [F, P, 50], K2, K4
+    cfg = PRESETS["vbr-ms-bs"]
+    cc = bsw.make_bs_consts(cfg, dev)
+    base = 2 * cc.cl.budget
+    with torch.no_grad():
+        frames, states = bsw._frames_and_states(xsd, cfg, cc, dev)
+        lane_states = bsw.lane_states(states, cfg)
+        ll, ls, smr, bh = bsw._bs_vbr_phase1(codec.to_lanes(frames, cfg),
+                                             lane_states, cfg, cc)
+        del frames
+        nl = bsw.state_n_lines(lane_states.transpose(0, 1), cc).repeat(1, 1, 2)
+        got = k3_case("vbr_ms_bs", smr, bh, nl.contiguous(), base,
+                      cfg.reservoir_factor * base)
+        al_rows, tid_rows = codec.rows_of_chain(got[0], got[1], 2)
+        st_rows = lane_states.repeat_interleave(2)
+        bc = bsw.quantize_both(ll[:ch], ls[:ch], al_rows[:ch], st_rows[:ch],
+                               cfg, cc)
+        k2_case("vbr_ms_bs", bsw.payload_fields_bs_vbr(bc, tid_rows[:ch], cfg, cc),
+                bsw.capacity_bits_bs_vbr(cfg))
+        del ll, ls, smr, bh, nl, got, al_rows, tid_rows, st_rows, bc
+    path("vbr-ms-bs", xs, cfg, bsw.encode_clip_bs_vbr_packed,
+         bsw.decode_clip_bs_vbr_packed, ("scatter_words", "vbr_scan", "huffdec"),
+         {"config": "vbr-ms-bs fast", "lanes": xs.shape[0]})
+    with torch.no_grad():
+        words = bsw.encode_clip_bs_vbr_packed(xsd, cfg, dev)[0]
+        _, _, tids, _, _, m_line, mant_start = bsw._bs_vbr_head(
+            words.reshape(-1, words.shape[-1]).contiguous(), cfg, cc)
+        k4_case("vbr_ms_bs", words, (tids, m_line, mant_start), cc.cl.huff)
+        del words, tids, m_line, mant_start
+    for k_, e in err.items():
+        out[k_]["max_abs_err"] = e
+    return out
+
+
+# goldens/streams.json's cases (tools/golden.py:cases()) on the port's presets
+GOLDEN_CASES = {
+    "config1_mono16_64": ("mono16-64", {}, "mono16"),
+    "config2_stereo44_128": ("stereo44-128", {}, "stereo44"),
+    "config3_vbr_huffman": ("vbr-huffman", {}, "stereo44"),
+    "config5_blockswitch": ("streaming-ll", {}, "transient44"),
+    "config6_vbr_blockswitch": ("vbr-bs", {"n_mdct_lines": 256,
+                                           "n_mdct_lines_short": 64,
+                                           "n_channels": 1}, "transient44"),
+    "config7_ms_stereo": ("stereo44-128-ms", {}, "stereo44"),
+    "config8_ms_vbr": ("vbr-ms", {}, "stereo44"),
+    "config9_ms_blockswitch": ("ms-bs", {"n_mdct_lines": 256,
+                                         "n_mdct_lines_short": 64},
+                               "transient44_stereo"),
+    "config10_ms_vbr_blockswitch": ("vbr-ms-bs", {"n_mdct_lines": 256,
+                                                  "n_mdct_lines_short": 64},
+                                    "transient44_stereo"),
+}
+
+
+def phase_parity_on_card(card: str) -> dict:
+    """Phase 11: every golden stream encoded in parity precision on the card
+    (cuFFT MDCT, f64 cuBLAS psy, the f64 allocation loops on CUDA tensors)
+    against goldens/streams.json. A mismatch is also encoded on the CPU,
+    and the first block that differs is printed."""
+    import hashlib
+    import os
+
+    from tac_torch import api
+    from tac_torch import bitstream as bst
+    from tac_torch.config import PRESETS
+    from tac_torch.dsp.mdct import num_frames
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import golden
+
+    with open(golden.GOLDEN_PATH) as f:
+        want = json.load(f)
+    material = golden.clips()
+    matched, mismatched = [], {}
+    for name, (preset, change, clip) in GOLDEN_CASES.items():
+        x, fs = material[clip]
+        cfg = PRESETS[preset].replace(precision="parity", sample_rate=fs,
+                                      **change)
+        data = api.encode_array(x, cfg)
+        if hashlib.sha256(data).hexdigest() == want[name]["sha256"]:
+            matched.append(name)
+            continue
+        ref = api.encode_array(x, cfg, device="cpu")
+        hdr, off = bst.read_header(data)
+        f = num_frames(hdr.num_samples, hdr.n_mdct_lines)
+        blocks = [bst.split_blocks(d_, off, f * hdr.n_channels)
+                  for d_ in (data, ref)]
+        first = next((i for i, (o1, l1, o2, l2) in enumerate(zip(
+            blocks[0][0], blocks[0][1], blocks[1][0], blocks[1][1]))
+            if data[o1:o1 + l1] != ref[o2:o2 + l2]), None)
+        mismatched[name] = {
+            "bytes": len(data), "cpu_matches_golden":
+                hashlib.sha256(ref).hexdigest() == want[name]["sha256"],
+            "first_differing_block": first,
+            "frame_channel": (None if first is None
+                              else divmod(first, hdr.n_channels))}
+    print(json.dumps({"parity_on_card": {
+        "goldens": len(GOLDEN_CASES), "matched": matched,
+        "mismatched": mismatched, "card": card}}))
+    check(not mismatched, f"parity streams on the card differ from the goldens: "
+          f"{sorted(mismatched)}")
+    return {"matched": len(matched)}
 
 
 def main() -> int:
@@ -727,10 +1114,6 @@ def main() -> int:
         # ---- timing (CUDA events). `ms`, `plain_ms` and `library_ms` run
         # the main path's own launch shapes: one call per ENC_CHUNK rows, all
         # of one flagship encode's rows. `ms_one_launch` puts all rows in one.
-        def per_chunk(fn, *ts):
-            chunks = list(zip(*(t.split(codec.ENC_CHUNK) for t in ts)))
-            return lambda: [fn(*ch) for ch in chunks]
-
         n_chunks = -(-rows // codec.ENC_CHUNK)
         k1_ms = cuda_ms(per_chunk(lambda s, b: k1.water_fill_rows(s, nl, b),
                                   smr_q, budgets), 50)
@@ -831,7 +1214,7 @@ def main() -> int:
 
     with torch.no_grad():
         lines_v, smr_fl, bh_fl = codec._vbr_phase1_lanes(
-            frames.reshape(lanes, n_fr, -1), cfg_v, cv)
+            frames.reshape(lanes, n_fr, 1, -1), cfg_v, cv)
         smr_fl = bitalloc.snap_smr(smr_fl).float().contiguous()
     res0_v = torch.zeros(lanes, dtype=torch.int32, device=dev)
     print(f"vbr: {lanes} lanes x {n_fr} frames x {smr_fl.shape[2]} bands, "
@@ -1081,14 +1464,21 @@ def main() -> int:
     del xd, frames, words_v, nbits_v, words, nbits
     torch.cuda.empty_cache()
     k5_entry = phase_k5(x, card)
-    bs = phase_block_switch(make_switching_clips(CLIPS, SECONDS, cfg.sample_rate),
-                            card)
+    xs = make_switching_clips(CLIPS, SECONDS, cfg.sample_rate)
+    bs = phase_block_switch(xs, card)
+    ms = phase_ms(x, xs, {"stereo44-128": (snrs, sum(len(s) for s in streams)),
+                          "vbr-huffman": (snrs_v, sum(len(s_) for s_ in streams_v))},
+                  card)
+    phase_parity_on_card(card)
 
     def with_bs(entry: dict) -> dict:
-        """A kernel's entry plus what the block-switch phases measured."""
-        extra = dict(bs[entry["name"]])
-        entry["max_abs_err"] = max(entry["max_abs_err"], extra.pop("max_abs_err"))
-        return {**entry, **extra}
+        """A kernel's entry plus what the block-switch and M/S phases
+        measured."""
+        for extra in (dict(bs[entry["name"]]), dict(ms[entry["name"]])):
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       extra.pop("max_abs_err"))
+            entry = {**entry, **extra}
+        return entry
 
     b1, b1_by = bound(k1_bytes, k1_ops)
     b2, b2_by = bound(k2_bytes, k2_ops)

@@ -1,11 +1,12 @@
 """tac_torch — the tac perceptual audio codec in PyTorch, for NVIDIA Hopper.
 
-A port of the JAX package ``tac`` (which stays the reference): L/R coding
-of the PAC-T format — fixed-rate and Huffman VBR, with and without block
-switching — and the bare MDCT filterbank, with hand-written CUDA kernels
-for the bit allocation (K1), the bit packing (K2), the VBR bit-reservoir
-chain (K3), the Huffman decode walk (K4) and the fused framing + MDCT
-(K5). Entry points run on CUDA unless the caller passes ``device="cpu"``.
+A port of the JAX package ``tac`` (which stays the reference): every
+stream family of the PAC-T format — fixed-rate and Huffman VBR, with and
+without block switching, L/R or mid/side — and the bare MDCT filterbank,
+with hand-written CUDA kernels for the bit allocation (K1), the bit
+packing (K2), the VBR bit-reservoir chain (K3), the Huffman decode walk
+(K4) and the fused framing + MDCT (K5). Entry points run on CUDA unless
+the caller passes ``device="cpu"``.
 """
 
 import torch

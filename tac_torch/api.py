@@ -1,5 +1,6 @@
-"""Public API: audio arrays ⇄ PAC-T bytes (counterpart of tac/api.py for L/R
-streams: fixed-rate or Huffman VBR, with or without block switching).
+"""Public API: audio arrays ⇄ PAC-T bytes (counterpart of tac/api.py for
+every stream family: fixed-rate or Huffman VBR, with or without block
+switching, L/R or mid/side).
 
 The device pipeline (tac_torch.codec) produces packed payload words; the
 host adds the PAC-T header and the u16-prefixed block framing. Entry points
@@ -14,7 +15,7 @@ import numpy as np
 from tac_torch import bands, codec
 from tac_torch import bitstream as bs
 from tac_torch import blockswitch as bsw
-from tac_torch.config import CodecConfig, check_supported
+from tac_torch.config import CodecConfig
 from tac_torch.dsp.mdct import num_frames
 from tac_torch.ops.bitpack import rows_to_stream, stream_to_rows
 
@@ -32,8 +33,10 @@ def encode_array(x: np.ndarray, cfg: CodecConfig, device=None) -> bytes:
             f"encode_array expects float[T] or [T, C] (got {x.shape}: "
             f"{c} channels) — transpose [C, T] input")
     if c != cfg.n_channels:
+        if cfg.stereo_mode == "ms" and c % 2:
+            raise ValueError(
+                f"stereo_mode='ms' requires even channel count, got {c}")
         cfg = cfg.replace(n_channels=c)
-    check_supported(cfg)
     h = cfg.n_mdct_lines
     if cfg.use_block_switch:
         enc = (bsw.encode_clip_bs_vbr_packed if cfg.use_huffman
@@ -54,7 +57,8 @@ def encode_array(x: np.ndarray, cfg: CodecConfig, device=None) -> bytes:
         n_lines_short=(bands.lines_per_band(cfg.sample_rate,
                                             cfg.n_mdct_lines_short)
                        if cfg.use_block_switch else None),
-        huffman=cfg.use_huffman, blockswitch=cfg.use_block_switch, ms=False)
+        huffman=cfg.use_huffman, blockswitch=cfg.use_block_switch,
+        ms=cfg.stereo_mode == "ms")
     return bs.write_header(hdr) + payload
 
 
@@ -75,7 +79,6 @@ def decode_array(data: bytes, precision: str = "parity", device=None
     """PAC-T bytes → (float32[T, C], sample_rate)."""
     hdr, off = bs.read_header(data)
     cfg = header_config(hdr, precision)
-    check_supported(cfg)
     f = num_frames(hdr.num_samples, hdr.n_mdct_lines)
     c = cfg.n_channels
     offs, lens = bs.split_blocks(data, off, f * c)

@@ -1,5 +1,5 @@
-"""Long/short block switching for L/R streams, fixed-rate and Huffman VBR
-(counterpart of those parts of tac/blockswitch.py, SPEC.md §9).
+"""Long/short block switching, fixed-rate and Huffman VBR, L/R or mid/side
+(counterpart of those parts of tac/blockswitch.py, SPEC.md §9, §11).
 
 A frame's window state (LONG, START, SHORT, STOP) follows from per-half-
 block transient flags by vectorised neighbour logic. Every frame row is
@@ -15,6 +15,11 @@ with n_lines [R, B] (fixed rate), kernel K3 with n_lines [F, L, B] (VBR).
 tac water-fills both encodings of every row and drops one; the bytes are
 the same. Packing is kernel K2, the Huffman walk of the decoder kernel K4
 behind the state-selected per-line widths.
+
+Mid/side: the transient flags of a pair's two M/S channels are OR-ed, so
+the pair shares one window state per frame, and the pair's rows allocate
+jointly over their 2B state-selected bands (K1 with per-row widths [R/2,
+2B]; K3 with per-frame widths [F, P, 2B], one lane per pair).
 """
 
 from __future__ import annotations
@@ -29,11 +34,10 @@ from tac_torch import bands, codec, consts
 from tac_torch import bitalloc as ba
 from tac_torch import psy as psy_mod
 from tac_torch.codec import FrameCode
-from tac_torch.config import CodecConfig, check_supported, resolve_device
+from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.consts import CodecConsts, PsyConsts
 from tac_torch.dsp import mdct as fb
 from tac_torch.dsp.window import sine_window, transition_windows, window_fn
-from tac_torch.ops.alloc import water_fill_rows
 from tac_torch.ops.bitpack import pack_rows
 from tac_torch.ops.huffdec import huffman_decode_sets
 
@@ -243,29 +247,15 @@ def quantize_both(lines_l, lines_s, alloc, state, cfg: CodecConfig,
         short=codec.quantize_given_alloc(lines_s, alloc, cfg, c.cg))
 
 
-def allocate_rows_bs(smr: torch.Tensor, n_lines: torch.Tensor,
-                     cfg: CodecConfig, c: BsConsts) -> torch.Tensor:
-    """State-selected smr [R, B] and band widths int32 [R, B] → alloc int32
-    [R, B]: K1 with per-row n_lines in fast precision (its plain version
-    for CPU tensors), the plain f64 loop in parity."""
-    if cfg.precision == "parity":
-        return ba.allocate(smr, n_lines, c.cl.budget, cfg.alloc_mode,
-                           cfg.max_mant_bits)
-    smr_eff = torch.zeros_like(smr) if cfg.alloc_mode == "uniform" else smr
-    smr_q = ba.snap_smr(smr_eff).to(torch.float32).contiguous()
-    budgets = torch.full(smr_q.shape[:1], c.cl.budget, dtype=torch.int32,
-                         device=smr_q.device)
-    return water_fill_rows(smr_q, n_lines, budgets,
-                           max_mant=cfg.max_mant_bits)
-
-
 def encode_frame_bs(frames: torch.Tensor, state: torch.Tensor,
                     cfg: CodecConfig, c: BsConsts) -> BsFrameCode:
     """frames [R, N] (unwindowed), state int [R] → both encodings, at the
-    fixed per-frame budget."""
+    fixed per-frame budget: one allocation per row on the state-selected
+    SMRs and band widths (K1 with per-row n_lines in fast precision, the
+    plain f64 loop in parity; jointly per M/S pair of rows)."""
     lines_l, smr_l, lines_s, smr_s = analyze_frame_bs(frames, state, cfg, c)
-    alloc = allocate_rows_bs(select_by_state(state, smr_l, smr_s),
-                             state_n_lines(state, c), cfg, c)
+    alloc = codec.allocate_rows(select_by_state(state, smr_l, smr_s), cfg,
+                                c.cl, state_n_lines(state, c))
     return quantize_both(lines_l, lines_s, alloc, state, cfg, c)
 
 
@@ -340,48 +330,76 @@ def _head_bits(cfg: CodecConfig) -> int:
     return 2 + s + bands.N_BANDS * (a + s)
 
 
+def _row_budget(cfg: CodecConfig) -> int:
+    """The most mantissa bits one row may take at a fixed budget: the
+    channel's budget, or its pair's under joint M/S allocation."""
+    return consts.frame_budget(cfg) * (2 if cfg.stereo_mode == "ms" else 1)
+
+
 def capacity_bits_bs(cfg: CodecConfig) -> int:
     """Payload capacity per (block, channel) of a block-switch stream, in
     bits. Host arithmetic only: decode staging needs no constants."""
-    return _head_bits(cfg) + consts.frame_budget(cfg) + 32
+    return _head_bits(cfg) + _row_budget(cfg) + 32
 
 
 def capacity_bits_bs_vbr(cfg: CodecConfig) -> int:
     """Capacity of a combo row: the head with its tableId, the budget with a
     full reservoir on top, a word of slack."""
     return (_head_bits(cfg) + 2
-            + consts.frame_budget(cfg) * (1 + cfg.reservoir_factor) + 32)
+            + _row_budget(cfg) * (1 + cfg.reservoir_factor) + 32)
 
 
 # ----------------------------------------------------- fixed-rate entries ---
 
 def _frames_and_states(x, cfg: CodecConfig, c: BsConsts, dev):
-    """x [..., C, T] → (frames f[..., C, F, N], states int32 [..., C, F])."""
-    xt = torch.as_tensor(x).to(dev).to(c.cl.dtype)
+    """x [..., C, T] → (frames f[..., C, F, N], states int32 [..., C, F]).
+    Under M/S the frames are of the butterflied signal, and each channel
+    takes its pair's state: the window states of the OR of the pair's
+    transient flags."""
+    xt = codec.input_signal(x, cfg, c.cl.dtype, dev)
     frames = fb.frame_signal(xt, cfg.n_mdct_lines)
-    return frames, window_states(transient_flags(xt, cfg), frames.shape[-2])
+    flags = transient_flags(xt, cfg)                     # [..., C, Kb]
+    if cfg.stereo_mode != "ms":
+        return frames, window_states(flags, frames.shape[-2])
+    fp = flags.reshape(*flags.shape[:-2], -1, 2, flags.shape[-1])
+    states = window_states(fp[..., 0, :] | fp[..., 1, :], frames.shape[-2])
+    return frames, states.repeat_interleave(2, dim=-2)
+
+
+def lane_states(states: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """Per-channel states int32 [..., C, F] → [L, F], one per reservoir lane
+    of ``codec.to_lanes`` (an M/S pair's two rows share their state)."""
+    return codec.to_lanes(states[..., None], cfg)[:, :, 0, 0]
 
 
 def encode_clip_bs_packed(x, cfg: CodecConfig, device=None):
     """Fixed-rate block-switch encode + bit pack on the device. x: float
     [..., C, T] → (words int32 [..., C, F, W32] holding 32-bit patterns,
     nbits int64 [..., C, F]). All leading axes flatten into one row axis,
-    coded in chunks of codec.ENC_CHUNK rows."""
-    check_supported(cfg)
+    coded in chunks of codec.ENC_CHUNK rows; mid/side orders the rows
+    frame-major so that each pair's rows are adjacent (an even chunk)."""
     dev = resolve_device(device)
     c = make_bs_consts(cfg, dev)
     frames, states = _frames_and_states(x, cfg, c, dev)
-    lead = frames.shape[:-1]                             # [..., C, F]
+    ms = cfg.stereo_mode == "ms"
+    if ms:
+        frames, states = frames.transpose(-3, -2), states.transpose(-2, -1)
+    lead = frames.shape[:-1]
     cap = capacity_bits_bs(cfg)
+    chunk = codec.even_chunk(cfg)
     words, nbits = [], []
-    for fr, st in zip(frames.reshape(-1, frames.shape[-1]).split(codec.ENC_CHUNK),
-                      states.reshape(-1).split(codec.ENC_CHUNK)):
+    for fr, st in zip(frames.reshape(-1, frames.shape[-1]).split(chunk),
+                      states.reshape(-1).split(chunk)):
         bc = encode_frame_bs(fr, st, cfg, c)
         w, n = pack_rows(*payload_fields_bs(bc, cfg, c), cap)
         words.append(w)
         nbits.append(n)
-    words = torch.cat(words)
-    return words.reshape(*lead, words.shape[-1]), torch.cat(nbits).reshape(lead)
+    words = torch.cat(words).reshape(*lead, -1)
+    nbits = torch.cat(nbits).reshape(lead)
+    if ms:
+        return (words.transpose(-3, -2).contiguous(),
+                nbits.transpose(-2, -1).contiguous())
+    return words, nbits
 
 
 def _bs_code(state, ovs, alloc_code, sf, mant) -> BsFrameCode:
@@ -403,15 +421,13 @@ def _unpack_bs_fields(wf: torch.Tensor, cfg: CodecConfig,
 
 
 def _decode_rows(words, cfg: CodecConfig, t: int, device, unpack):
-    check_supported(cfg)
     dev = resolve_device(device)
     c = make_bs_consts(cfg, dev)
     w = torch.as_tensor(words).to(dev)
     lead = w.shape[:-1]                                  # [..., C, F]
     bc = unpack(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
     y = decode_frame_bs(bc, cfg, c)                      # [K, N]
-    return fb.overlap_add(y.reshape(*lead, 2 * cfg.n_mdct_lines),
-                          cfg.n_mdct_lines, t)
+    return codec.output_signal(y.reshape(*lead, -1), cfg, t)
 
 
 def decode_clip_bs_packed(words, cfg: CodecConfig, t: int, device=None):
@@ -425,67 +441,66 @@ def decode_clip_bs_packed(words, cfg: CodecConfig, t: int, device=None):
 def _bs_vbr_phase1(frames, states, cfg: CodecConfig, c: BsConsts):
     """Phase 1 of the combo encode over all lanes, in row chunks: both
     analyses, the Huffman band costs under both band maps, and the state
-    select. frames f[L, F, N], states int32 [L, F] → (long lines [L·F, H],
-    short lines [L·F, H], smr f[F, L, B], bits_huf int32 [F, L, B, 7·S]);
-    the last two frame-major, as the chain reads them."""
-    lanes, f = frames.shape[:2]
+    select. frames f[L, F, K, N] (``codec.to_lanes``), states int32 [L, F]
+    (one per lane and frame, shared by its K rows) → (long lines
+    [L·F·K, H], short lines [L·F·K, H], smr f[F, L, K·B], bits_huf int32
+    [F, L, K·B, 7·S]); the last two ``codec.frame_major``."""
+    lanes, f, k = frames.shape[:3]
+    rows = frames.reshape(-1, frames.shape[-1])
     parts = []
-    for fr, st in zip(frames.reshape(lanes * f, -1).split(codec.ENC_CHUNK),
-                      states.reshape(-1).split(codec.ENC_CHUNK)):
+    for fr, st in zip(rows.split(codec.ENC_CHUNK),
+                      states.repeat_interleave(k).split(codec.ENC_CHUNK)):
         ll, sl, ls, ss = analyze_frame_bs(fr, st, cfg, c)
         bh = select_by_state(st, codec._vbr_band_costs(ll, cfg, c.cl),
                              codec._vbr_band_costs(ls, cfg, c.cg))
         parts.append((ll, ls, select_by_state(st, sl, ss), bh))
     ll, ls, smr, bh = (torch.cat(p) for p in zip(*parts))
-
-    def to_fl(x):                                  # [L·F, ...] → [F, L, ...]
-        return x.reshape(lanes, f, *x.shape[1:]).transpose(0, 1).contiguous()
-
-    return ll, ls, to_fl(smr), to_fl(bh)
+    return (ll, ls, codec.frame_major(smr, lanes, f),
+            codec.frame_major(bh, lanes, f))
 
 
 def _encode_bs_vbr_lanes_to_words(frames, states, res0, cfg: CodecConfig,
                                   c: BsConsts):
-    """Whole-clip combo encode over independent lanes. frames f[L, F, N],
-    states int32 [L, F], res0 int32 [L] → (words int32 [L, F, W32], nbits
-    int64 [L, F]). Phase 2 is the reservoir chain (K3) on the
-    state-selected SMRs and costs with per-frame band widths; phase 3
+    """Whole-clip combo encode over independent lanes. frames f[L, F, K, N],
+    states int32 [L, F], res0 int32 [L] → (words int32 [L, F, K, W32],
+    nbits int64 [L, F, K]). Phase 2 is the reservoir chain (K3) on the
+    state-selected SMRs and costs with per-frame band widths [F, L, K·B]
+    and base K·budget (an M/S pair's joint chain at K = 2); phase 3
     (quantize at the chain's allocations, fields, pack) runs per row
     chunk."""
-    lanes, f = frames.shape[:2]
+    lanes, f, k = frames.shape[:3]
     cap = capacity_bits_bs_vbr(cfg)
     ll, ls, smr, bh = _bs_vbr_phase1(frames, states, cfg, c)
     allocs, tids, _, _ = codec._reservoir_chain(
-        smr, bh, state_n_lines(states.transpose(0, 1), c), res0, c.cl.budget,
-        cfg.reservoir_factor * c.cl.budget, cfg)
+        smr, bh, state_n_lines(states.transpose(0, 1), c).repeat(1, 1, k),
+        res0, k * c.cl.budget, cfg.reservoir_factor * k * c.cl.budget, cfg)
     del smr, bh
-    rows = (ll, ls, allocs.transpose(0, 1).reshape(lanes * f, -1),
-            states.reshape(-1), tids.transpose(0, 1).reshape(-1))
+    rows = (ll, ls, *codec.rows_of_chain(allocs, tids, k),
+            states.repeat_interleave(k))
     words, nbits = [], []
-    for l1, l2, al, st, td in zip(*(r.split(codec.ENC_CHUNK) for r in rows)):
+    for l1, l2, al, td, st in zip(*(r.split(codec.ENC_CHUNK) for r in rows)):
         bc = quantize_both(l1, l2, al, st, cfg, c)
         w, n = pack_rows(*payload_fields_bs_vbr(bc, td, cfg, c), cap)
         words.append(w)
         nbits.append(n)
-    words = torch.cat(words)
-    return (words.reshape(lanes, f, words.shape[-1]),
-            torch.cat(nbits).reshape(lanes, f))
+    return (torch.cat(words).reshape(lanes, f, k, -1),
+            torch.cat(nbits).reshape(lanes, f, k))
 
 
 def encode_clip_bs_vbr_packed(x, cfg: CodecConfig, device=None):
     """Huffman × block-switch encode + pack on the device. x: float
     [..., C, T] → (words int32 [..., C, F, W32], nbits int64 [..., C, F]).
-    Every channel of every clip is its own reservoir lane from fill 0."""
-    check_supported(cfg)
+    Every channel (or M/S pair) of every clip is its own reservoir lane
+    from fill 0."""
     dev = resolve_device(device)
     c = make_bs_consts(cfg, dev)
     frames, states = _frames_and_states(x, cfg, c, dev)
-    lead, f = frames.shape[:-2], frames.shape[-2]        # [..., C], F
-    lanes = frames.reshape(-1, f, frames.shape[-1])
+    lanes = codec.to_lanes(frames, cfg)
     res0 = torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev)
     words, nbits = _encode_bs_vbr_lanes_to_words(
-        lanes, states.reshape(-1, f), res0, cfg, c)
-    return words.reshape(*lead, f, words.shape[-1]), nbits.reshape(*lead, f)
+        lanes, lane_states(states, cfg), res0, cfg, c)
+    lead = frames.shape[:-2]                             # [..., C]
+    return codec.from_lanes(words, lead), codec.from_lanes(nbits, lead)
 
 
 def _bs_vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: BsConsts):

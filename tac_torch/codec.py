@@ -1,5 +1,6 @@
-"""Codec core: L/R encode to payload words and decode back, fixed-rate and
-Huffman VBR (counterpart of those parts of tac/codec.py, SPEC.md §4–§8).
+"""Codec core: encode to payload words and decode back, fixed-rate and
+Huffman VBR, L/R or mid/side (counterpart of those parts of tac/codec.py,
+SPEC.md §4–§8, §11).
 
 Fixed-rate encode: frame → window-fused MDCT (matmul; FFT in parity) → psy
 SMRs → bit allocation → quantize → payload fields → bit pack, in row chunks
@@ -14,6 +15,13 @@ chain, the one serial axis, every channel a lane and all frames in one
 call. Phase 3, in row chunks: quantize at the chain's allocations, build
 the Huffman-or-raw fields, pack. VBR decode reads the head fields, then
 the mantissas raw by cumsum offsets or by the serial Huffman walk per set.
+
+Mid/side (SPEC.md §11) butterflies each adjacent channel pair before
+framing and undoes it after overlap-add. The pair's two rows (mid, side)
+of a frame are coded jointly: one water-fill over their concatenated 2B
+bands with 2·budget (fixed rate), one reservoir lane per pair over 2B
+bands with base 2·budget and one tableId for both rows (VBR). The
+per-channel payload layout is unchanged.
 
 On a CUDA device, fast precision allocates with kernel K1 (fixed-rate) or
 runs the reservoir chain as kernel K3 (VBR), packs with kernel K2 and walks
@@ -34,7 +42,7 @@ from tac_torch import bitalloc as ba
 from tac_torch import consts
 from tac_torch import huffman as hf
 from tac_torch import psy as psy_mod
-from tac_torch.config import CodecConfig, check_supported, resolve_device
+from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.consts import CodecConsts, frame_budget  # noqa: F401
 from tac_torch.dsp import mdct as fb
 from tac_torch.ops.alloc import water_fill_rows
@@ -56,6 +64,28 @@ def make_consts(cfg: CodecConfig, device: torch.device) -> CodecConsts:
     uploading them would otherwise cost more than a batch's encode. The
     tensors are shared between callers and are never written."""
     return consts.consts_from_numpy(cfg, consts.host_arrays(cfg), device)
+
+
+def ms_forward(x: torch.Tensor) -> torch.Tensor:
+    """[..., C, T] (C even) L/R → M/S per adjacent channel pair
+    (tac/codec.py:ms_forward): M = (L+R)/2, S = (L−R)/2."""
+    ev, od = x[..., 0::2, :], x[..., 1::2, :]
+    m = 0.5 * (ev + od)
+    s = 0.5 * (ev - od)
+    return torch.stack([m, s], dim=-2).reshape(x.shape)
+
+
+def ms_inverse(x: torch.Tensor) -> torch.Tensor:
+    """[..., C, T] (C even) M/S → L/R per pair: L = M + S, R = M − S."""
+    m, s = x[..., 0::2, :], x[..., 1::2, :]
+    return torch.stack([m + s, m - s], dim=-2).reshape(x.shape)
+
+
+def output_signal(y: torch.Tensor, cfg: CodecConfig, t: int):
+    """Decoded frames [..., C, F, N] → [..., C, T] audio: overlap-add, then
+    the inverse butterfly of a mid/side stream."""
+    out = fb.overlap_add(y, cfg.n_mdct_lines, t)
+    return ms_inverse(out) if cfg.stereo_mode == "ms" else out
 
 
 class FrameCode(NamedTuple):
@@ -96,19 +126,48 @@ def analyze_frame(frames: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
     return lines, _smr_input(frames, lines, cfg, c)
 
 
-def allocate_rows(smr: torch.Tensor, cfg: CodecConfig,
-                  c: CodecConsts) -> torch.Tensor:
-    """smr [R, B] → alloc int32 [R, B]. Fast precision runs K1 (its plain
-    version for CPU tensors); parity keeps the plain f64 loop."""
+def water_fill_alloc(smr: torch.Tensor, n_lines: torch.Tensor, budget: int,
+                     cfg: CodecConfig) -> torch.Tensor:
+    """smr [R, B], band widths int32 [B] (shared) or [R, B] (per row) and
+    one budget for every row → alloc int32 [R, B]. Fast precision runs K1
+    (its plain version for CPU tensors); parity keeps the plain f64 loop."""
     if cfg.precision == "parity":
-        return ba.allocate(smr, c.n_lines, c.budget, cfg.alloc_mode,
+        return ba.allocate(smr, n_lines, budget, cfg.alloc_mode,
                            cfg.max_mant_bits)
     smr_eff = torch.zeros_like(smr) if cfg.alloc_mode == "uniform" else smr
     smr_q = ba.snap_smr(smr_eff).to(torch.float32).contiguous()
-    budgets = torch.full(smr_q.shape[:1], c.budget, dtype=torch.int32,
+    budgets = torch.full(smr_q.shape[:1], budget, dtype=torch.int32,
                          device=smr_q.device)
-    return water_fill_rows(smr_q, c.n_lines, budgets,
+    return water_fill_rows(smr_q, n_lines.contiguous(), budgets,
                            max_mant=cfg.max_mant_bits)
+
+
+def joint_alloc_pair_rows(smr: torch.Tensor, n_lines: torch.Tensor,
+                          budget: int, cfg: CodecConfig) -> torch.Tensor:
+    """Joint M/S allocation over pair-adjacent rows (SPEC.md §11;
+    tac/codec.py:_joint_alloc_pair_rows).
+
+    smr [M, B] with row 2i the mid and 2i+1 the side of one frame; n_lines
+    int32 [B] shared or [M, B] per row (a pair's two rows carry the same
+    map) → alloc int32 [M, B]: one water-fill per pair over the
+    concatenated 2B bands, mid's first (the tie order), sharing 2·budget."""
+    m, nb = smr.shape
+    nl2 = (n_lines.reshape(m // 2, 2 * nb) if n_lines.dim() == 2
+           else torch.cat([n_lines, n_lines]))
+    return water_fill_alloc(smr.reshape(m // 2, 2 * nb), nl2, 2 * budget,
+                            cfg).reshape(m, nb)
+
+
+def allocate_rows(smr: torch.Tensor, cfg: CodecConfig, c: CodecConsts,
+                  n_lines: torch.Tensor | None = None) -> torch.Tensor:
+    """smr [R, B] → alloc int32 [R, B] at c's budget and band widths
+    (n_lines int32 [R, B] overrides them: the block-switch state-selected
+    maps): per row, or under M/S jointly per pair of adjacent rows (mid,
+    side) at 2·budget."""
+    nl = c.n_lines if n_lines is None else n_lines
+    if cfg.stereo_mode == "ms":
+        return joint_alloc_pair_rows(smr, nl, c.budget, cfg)
+    return water_fill_alloc(smr, nl, c.budget, cfg)
 
 
 def quantize_given_alloc(lines: torch.Tensor, alloc: torch.Tensor,
@@ -169,24 +228,32 @@ def payload_fields(code: FrameCode, cfg: CodecConfig, c: CodecConsts,
 
 def payload_capacity_bits(cfg: CodecConfig, c: CodecConsts | None = None) -> int:
     """Payload capacity per (block, channel), in bits: the head, the
-    mantissa budget (with a full reservoir on top for VBR) and a word of
-    slack."""
+    mantissa budget (the pair's under M/S; with a full reservoir on top for
+    VBR) and a word of slack."""
     s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
     head = s + bands.N_BANDS * (a + s) + (2 if cfg.use_huffman else 0)
     budget = c.budget if c is not None else frame_budget(cfg)
+    if cfg.stereo_mode == "ms":        # a joint pair may give one row all
+        budget *= 2
     if cfg.use_huffman:
         budget *= 1 + cfg.reservoir_factor
     return head + budget + 32
 
 
+def even_chunk(cfg: CodecConfig) -> int:
+    """The encode's row chunk: ENC_CHUNK, rounded up to an even size under
+    M/S, whose rows hold pairs adjacently, so that no pair splits."""
+    return ENC_CHUNK + (ENC_CHUNK % 2 if cfg.stereo_mode == "ms" else 0)
+
+
 def _encode_rows_to_words(frames: torch.Tensor, cfg: CodecConfig,
                           c: CodecConsts):
     """frames [R, N] → (words int32 [R, W32], nbits int64 [R]), each chunk
-    of ENC_CHUNK rows packed before the next is analyzed, so the FrameCode
-    and field matrices never exist at full batch size."""
+    of rows packed before the next is analyzed, so the FrameCode and field
+    matrices never exist at full batch size."""
     cap = payload_capacity_bits(cfg, c)
     words, nbits = [], []
-    for fc in frames.split(ENC_CHUNK):
+    for fc in frames.split(even_chunk(cfg)):
         lines, smr = analyze_frame(fc, cfg, c)
         code = quantize_given_alloc(lines, allocate_rows(smr, cfg, c), cfg, c)
         w, n = pack_rows(*payload_fields(code, cfg, c), cap)
@@ -195,19 +262,33 @@ def _encode_rows_to_words(frames: torch.Tensor, cfg: CodecConfig,
     return torch.cat(words), torch.cat(nbits)
 
 
+def input_signal(x, cfg: CodecConfig, dtype, dev) -> torch.Tensor:
+    """x [..., C, T] on `dev` in the codec's float type, butterflied to
+    M/S per channel pair when the stream is mid/side."""
+    xt = torch.as_tensor(x).to(dev).to(dtype)
+    return ms_forward(xt) if cfg.stereo_mode == "ms" else xt
+
+
 def encode_clip_packed(x, cfg: CodecConfig, device=None):
     """x: float [..., C, T] (array or tensor) → (words int32 [..., C, F, W32]
     holding 32-bit patterns, nbits int64 [..., C, F]), on `device` (CUDA
-    unless named)."""
-    check_supported(cfg)
+    unless named). Mid/side orders the rows frame-major ([..., F, C]) so
+    that each pair's rows are adjacent, and swaps the words back."""
     dev = resolve_device(device)
     c = make_consts(cfg, dev)
-    xt = torch.as_tensor(x).to(dev).to(c.dtype)
-    frames = fb.frame_signal(xt, cfg.n_mdct_lines)
-    lead = frames.shape[:-1]                       # [..., C, F]
+    frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
+                             cfg.n_mdct_lines)
+    ms = cfg.stereo_mode == "ms"
+    if ms:
+        frames = frames.transpose(-3, -2)          # [..., F, C, N]
+    lead = frames.shape[:-1]
     words, nbits = _encode_rows_to_words(frames.reshape(-1, frames.shape[-1]),
                                          cfg, c)
-    return words.reshape(*lead, words.shape[-1]), nbits.reshape(lead)
+    words, nbits = words.reshape(*lead, words.shape[-1]), nbits.reshape(lead)
+    if ms:
+        return (words.transpose(-3, -2).contiguous(),
+                nbits.transpose(-2, -1).contiguous())
+    return words, nbits
 
 
 def read_head(wf: torch.Tensor, cfg: CodecConfig, pre: tuple):
@@ -251,15 +332,13 @@ def _unpack_raw_fields(wf: torch.Tensor, cfg: CodecConfig,
 def decode_clip_packed(words, cfg: CodecConfig, t: int, device=None):
     """words: int32 [..., C, F, W32] payload rows (32-bit patterns) →
     [..., C, T] audio, on `device` (CUDA unless named)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     c = make_consts(cfg, dev)
     w = torch.as_tensor(words).to(dev)
     lead = w.shape[:-1]                            # [..., C, F]
     code = _unpack_raw_fields(w.reshape(-1, w.shape[-1]), cfg, c)
     y = decode_frame(code, cfg, c)                 # [K, N]
-    return fb.overlap_add(y.reshape(*lead, 2 * cfg.n_mdct_lines),
-                          cfg.n_mdct_lines, t)
+    return output_signal(y.reshape(*lead, -1), cfg, t)
 
 
 # ----------------------------------------------------------- VBR (huffman) --
@@ -379,44 +458,57 @@ def _reservoir_chain(smr, bits_huf, n_lines, res0, base: int, cap: int,
                               base=base, cap=cap, max_mant=max_mant)
 
 
+def to_lanes(frames: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """frames f[..., C, F, N] → [L, F, K, N] reservoir lanes: each channel
+    its own lane (K = 1) or, under M/S, each channel pair one lane whose
+    frames hold the pair's K = 2 rows, mid then side."""
+    f, n = frames.shape[-2:]
+    if cfg.stereo_mode == "ms":
+        return frames.reshape(-1, 2, f, n).transpose(1, 2)
+    return frames.reshape(-1, f, 1, n)
+
+
+def from_lanes(x: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """Per-row x [L, F, K, ...] → [*lead, F, ...], lead = [..., C]: the
+    inverse of ``to_lanes``'s row order."""
+    f = x.shape[1]
+    return x.transpose(1, 2).reshape(*lead, f, *x.shape[3:])
+
+
+def frame_major(x: torch.Tensor, lanes: int, f: int) -> torch.Tensor:
+    """Per-row x [L·F·K, B, ...] in (lane, frame, row) order → [F, L, K·B,
+    ...]: frame-major, as the chain reads it, with a frame's K rows side by
+    side on the band axis (mid's bands before side's)."""
+    return x.reshape(lanes, f, -1, *x.shape[2:]).transpose(0, 1).contiguous()
+
+
+def rows_of_chain(allocs: torch.Tensor, tids: torch.Tensor, k: int):
+    """The chain's allocs int32 [F, L, K·B] and tids [F, L] → per-row allocs
+    [L·F·K, B] and tids [L·F·K] in (lane, frame, row) order: a frame's
+    tableId goes to each of its K rows."""
+    kb = allocs.shape[-1]
+    return (allocs.transpose(0, 1).reshape(-1, kb // k),
+            tids.transpose(0, 1).reshape(-1).repeat_interleave(k))
+
+
 def _vbr_phase1_lanes(frames, cfg: CodecConfig, c: CodecConsts):
     """Phase 1 of the VBR encode over all lanes, in row chunks. frames
-    f[L, F, N] → (lines f[L·F, H] lane-major, smr f[F, L, B], bits_huf
-    int32[F, L, B, 7·S]); the last two frame-major, as the chain reads
-    them."""
+    f[L, F, K, N] → (lines f[L·F·K, H] in row order, smr f[F, L, K·B],
+    bits_huf int32[F, L, K·B, 7·S]); the last two ``frame_major``."""
     lanes, f = frames.shape[:2]
     parts = [_vbr_phase1(fc, cfg, c)
-             for fc in frames.reshape(lanes * f, -1).split(ENC_CHUNK)]
+             for fc in frames.reshape(-1, frames.shape[-1]).split(ENC_CHUNK)]
     lines, smr, bits_huf = (torch.cat(p) for p in zip(*parts))
-
-    def to_fl(x):                                  # [L·F, ...] → [F, L, ...]
-        return x.reshape(lanes, f, *x.shape[1:]).transpose(0, 1).contiguous()
-
-    return lines, to_fl(smr), to_fl(bits_huf)
+    return lines, frame_major(smr, lanes, f), frame_major(bits_huf, lanes, f)
 
 
-def _vbr_decisions(frames, res0, cfg: CodecConfig, c: CodecConsts):
-    """Phases 1 + 2 of the VBR encode. frames f[L, F, N], res0 int32[L] →
-    (lines f[L·F, H], allocs int32[F, L, B], tid/used/res int32[F, L])."""
-    lines, smr, bits_huf = _vbr_phase1_lanes(frames, cfg, c)
-    allocs, tids, used, res = _reservoir_chain(
-        smr, bits_huf, c.n_lines, res0, c.budget,
-        cfg.reservoir_factor * c.budget, cfg)
-    return lines, allocs, tids, used, res
-
-
-def _encode_vbr_lanes_to_words(frames, res0, cfg: CodecConfig, c: CodecConsts):
-    """Whole-clip VBR encode over independent lanes (channels of clips).
-
-    frames f[L, F, N], res0 int32[L] → (words int32[L, F, W32], nbits
-    int64[L, F]). Phase 3 (quantize at the chain's allocations, the VBR
-    field build and the bit pack) runs per row chunk, so the FrameCode and
-    the [R, 2+2B+2H] field matrices stay chunk-sized."""
-    lanes, f = frames.shape[:2]
+def _vbr_pack_rows(lines, alloc_rows, tid_rows, cfg: CodecConfig,
+                   c: CodecConsts):
+    """Phase 3 of the VBR encode, per row chunk: quantize at the chain's
+    allocations, build the VBR fields, pack. lines f[R, H], alloc_rows
+    int32 [R, B], tid_rows [R] → (words int32 [R, W32], nbits int64 [R]);
+    the FrameCode and the [R, 2+2B+2H] field matrices stay chunk-sized."""
     cap = payload_capacity_bits(cfg, c)
-    lines, allocs, tids, _, _ = _vbr_decisions(frames, res0, cfg, c)
-    alloc_rows = allocs.transpose(0, 1).reshape(lanes * f, -1)
-    tid_rows = tids.transpose(0, 1).reshape(lanes * f)
     words, nbits = [], []
     for ln, al, td in zip(lines.split(ENC_CHUNK), alloc_rows.split(ENC_CHUNK),
                           tid_rows.split(ENC_CHUNK)):
@@ -424,26 +516,43 @@ def _encode_vbr_lanes_to_words(frames, res0, cfg: CodecConfig, c: CodecConsts):
         w, n = pack_rows(*payload_fields_vbr(code, td, cfg, c), cap)
         words.append(w)
         nbits.append(n)
-    words = torch.cat(words)
-    return (words.reshape(lanes, f, words.shape[-1]),
-            torch.cat(nbits).reshape(lanes, f))
+    return torch.cat(words), torch.cat(nbits)
+
+
+def _encode_vbr_lanes_to_words(frames, res0, cfg: CodecConfig, c: CodecConsts):
+    """Whole-clip VBR encode over independent reservoir lanes.
+
+    frames f[L, F, K, N], res0 int32[L] → (words int32[L, F, K, W32], nbits
+    int64[L, F, K]). A lane of M/S pairs (K = 2) allocates over its frame's
+    K·B bands with base K·budget and cap reservoir_factor·K·budget, and
+    prices both rows under one tableId (tac/codec.py:
+    _encode_vbr_ms_to_words)."""
+    lanes, f, k = frames.shape[:3]
+    lines, smr, bits_huf = _vbr_phase1_lanes(frames, cfg, c)
+    allocs, tids, _, _ = _reservoir_chain(
+        smr, bits_huf, c.n_lines.repeat(k), res0, k * c.budget,
+        cfg.reservoir_factor * k * c.budget, cfg)
+    del smr, bits_huf
+    words, nbits = _vbr_pack_rows(lines, *rows_of_chain(allocs, tids, k),
+                                  cfg, c)
+    return words.reshape(lanes, f, k, -1), nbits.reshape(lanes, f, k)
 
 
 def encode_clip_vbr_packed(x, cfg: CodecConfig, device=None):
     """VBR encode + Huffman field pack on the device. x: float [..., C, T]
     → (words int32 [..., C, F, W32], nbits int64 [..., C, F]). All leading
-    axes flatten into reservoir lanes (each channel its own chain, starting
-    at fill 0), so a batch gives each clip the bytes of a solo encode."""
-    check_supported(cfg)
+    axes flatten into reservoir lanes (each channel, or each M/S pair, its
+    own chain from fill 0), so a batch gives each clip the bytes of a solo
+    encode."""
     dev = resolve_device(device)
     c = make_consts(cfg, dev)
-    xt = torch.as_tensor(x).to(dev).to(c.dtype)
-    frames = fb.frame_signal(xt, cfg.n_mdct_lines)
-    lead, f = frames.shape[:-2], frames.shape[-2]  # [..., C], F
-    lanes = frames.reshape(-1, f, frames.shape[-1])
+    frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
+                             cfg.n_mdct_lines)
+    lanes = to_lanes(frames, cfg)
     res0 = torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev)
     words, nbits = _encode_vbr_lanes_to_words(lanes, res0, cfg, c)
-    return words.reshape(*lead, f, words.shape[-1]), nbits.reshape(*lead, f)
+    lead = frames.shape[:-2]                       # [..., C]
+    return from_lanes(words, lead), from_lanes(nbits, lead)
 
 
 def _vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
@@ -472,12 +581,10 @@ def _unpack_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
 def decode_clip_vbr_packed(words, cfg: CodecConfig, t: int, device=None):
     """words: int32 [..., C, F, W32] VBR payload rows (32-bit patterns) →
     [..., C, T] audio, on `device` (CUDA unless named)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     c = make_consts(cfg, dev)
     w = torch.as_tensor(words).to(dev)
     lead = w.shape[:-1]                            # [..., C, F]
     code = _unpack_vbr_fields(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
     y = decode_frame(code, cfg, c)                 # [K, N]
-    return fb.overlap_add(y.reshape(*lead, 2 * cfg.n_mdct_lines),
-                          cfg.n_mdct_lines, t)
+    return output_signal(y.reshape(*lead, -1), cfg, t)

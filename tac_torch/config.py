@@ -1,8 +1,7 @@
 """Codec configuration (counterpart of tac/config.py).
 
 A frozen dataclass with the same fields, validation and presets as the
-JAX package, plus the port's run-time policy: which configurations this
-package codes (``check_supported``) and which device it runs on
+JAX package, plus the port's run-time policy: which device it runs on
 (``resolve_device``).
 """
 
@@ -146,16 +145,6 @@ PRESETS = {
         stereo_mode="ms",
     ),
 }
-
-
-def check_supported(cfg: CodecConfig) -> None:
-    """Raise for the stream family this package does not code yet: mid/side
-    joint stereo. It codes L/R streams, fixed-rate or Huffman VBR, with or
-    without block switching."""
-    if cfg.stereo_mode == "ms":
-        raise NotImplementedError(
-            "tac_torch codes L/R streams only; stereo_mode='ms' is not "
-            "ported yet (use the tac package)")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -15,25 +15,28 @@
 // depend on their order) and writes the words back coalesced. Four rows
 // per 128-thread block keep loads from several rows in flight per SM.
 // The TPU kernel's register window existed to avoid dynamic indexing on
-// the vector unit; shared memory indexes freely, so it is not needed.
+// the vector unit; shared memory indexes freely, so it is not needed. The
+// word buffer is dynamic shared memory of W32 words a row, so a launch
+// takes any W32 up to the 48 KB a block gets without an opt-in: 3 072
+// words (the mid/side VBR rows need 408).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxWords = 208;     // W32 up to the VBR capacity
 constexpr int kRowsPerBlock = 4;
+constexpr int kMaxWords = (48 << 10) / (kRowsPerBlock * 4);
 
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 scatter_words_kernel(const unsigned* __restrict__ c0,
                      const unsigned* __restrict__ c1,
                      const int* __restrict__ word0, unsigned* __restrict__ out,
                      int rows, int nf, int w32) {
-  __shared__ unsigned buf[kRowsPerBlock][kMaxWords];
+  extern __shared__ unsigned buf[];            // [kRowsPerBlock][w32]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + warp;
   if (row >= rows) return;                     // warp-uniform exit
-  unsigned* words = buf[warp];
+  unsigned* words = buf + warp * w32;
   for (int w = lane; w < w32; w += 32) words[w] = 0u;
   __syncwarp();
   const size_t base = (size_t)row * nf;
@@ -60,7 +63,8 @@ extern "C" int tac_scatter_words_rows(const void* c0, const void* c1,
   if (err != cudaSuccess) return (int)err;
   if (w32 < 1 || w32 > kMaxWords || nf < 0) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  scatter_words_kernel<<<blocks, 32 * kRowsPerBlock, 0,
+  const size_t smem = sizeof(unsigned) * kRowsPerBlock * w32;
+  scatter_words_kernel<<<blocks, 32 * kRowsPerBlock, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(c0), static_cast<const unsigned*>(c1),
       word0, static_cast<unsigned*>(out), rows, nf, w32);

@@ -20,7 +20,7 @@ import torch
 
 from tac_torch import _build
 
-MAX_WORDS = 208        # shared-memory word buffer per row (VBR's largest W32)
+MAX_WORDS = 3072       # the kernel's shared word buffer: 48 KB for 4 rows
 _MASK32 = 0xFFFFFFFF
 _PLAIN_TEMP_BYTES = 256 << 20   # bound on the plain version's [rows, NF, W32]
 

@@ -243,7 +243,8 @@ def test_bs_decision_layers_identical():
     assert {0, 1, 2, 3} <= set(st.tolist())
     nl = tb.state_n_lines(st, c)
     assert nl.shape == (len(st), 25) and nl.dtype == torch.int32
-    alloc = tb.allocate_rows_bs(tb.select_by_state(st, t[1], t[3]), nl, tcfg, c)
+    alloc = tc.allocate_rows(tb.select_by_state(st, t[1], t[3]), tcfg, c.cl,
+                             nl)
     bc = tb.quantize_both(t[0], t[2], alloc, st, tcfg, c)
     vals, wids = tb.payload_fields_bs(bc, tcfg, c)
     assert vals.shape[-1] == 2 + 2 * 25 + jcfg.n_mdct_lines
@@ -339,7 +340,7 @@ def test_bs_batch_equals_solo_encodes_at_any_chunk():
 
 def test_bs_entry_points_need_a_card_unless_told(monkeypatch):
     """Without a card the block-switch entry points raise unless the caller
-    passes device="cpu"; mid/side block switching is still refused."""
+    passes device="cpu", mid/side block switching as well."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((2048, 1))
     cfg = TPRESETS["streaming-ll"]
@@ -350,8 +351,10 @@ def test_bs_entry_points_need_a_card_unless_told(monkeypatch):
         tapi.decode_array(data)
     with pytest.raises(RuntimeError):
         tb.encode_clip_bs_packed(x.T, cfg)
-    with pytest.raises(NotImplementedError):
-        tb.encode_clip_bs_packed(np.zeros((2, 2048)), TPRESETS["ms-bs"],
-                                 device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tb.encode_clip_bs_packed(np.zeros((2, 2048)), TPRESETS["ms-bs"])
+    w, n = tb.encode_clip_bs_packed(np.zeros((2, 2048)), TPRESETS["ms-bs"],
+                                    device="cpu")
+    assert w.shape[:2] == n.shape[:2] == (2, 3)
     y, fs = tapi.decode_array(data, "fast", device="cpu")
     assert y.shape == x.shape and fs == 44100 and not y.any()

@@ -250,7 +250,7 @@ def test_bs_vbr_batch_lanes_equal_solo_encodes():
 
 def test_bs_vbr_entry_points_need_a_card_unless_told(monkeypatch):
     """Without a card the combo entry points raise unless the caller passes
-    device="cpu"; the mid/side combo is still refused."""
+    device="cpu", the mid/side combo as well."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((4096, 2))
     cfg = TPRESETS["vbr-bs"]
@@ -261,7 +261,10 @@ def test_bs_vbr_entry_points_need_a_card_unless_told(monkeypatch):
         tapi.decode_array(data)
     with pytest.raises(RuntimeError):
         tb.encode_clip_bs_vbr_packed(x.T, cfg)
-    with pytest.raises(NotImplementedError):
-        tb.encode_clip_bs_vbr_packed(x.T, TPRESETS["vbr-ms-bs"], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tb.encode_clip_bs_vbr_packed(x.T, TPRESETS["vbr-ms-bs"])
+    w, n = tb.encode_clip_bs_vbr_packed(x.T, TPRESETS["vbr-ms-bs"],
+                                        device="cpu")
+    assert w.shape[:2] == n.shape[:2] == (2, 5)
     y, fs = tapi.decode_array(data, "fast", device="cpu")
     assert y.shape == x.shape and fs == 44100 and not y.any()

@@ -21,7 +21,6 @@ from tac.ops import bitpack as jbp
 from tac_torch import api as tapi
 from tac_torch import bitstream as tbs
 from tac_torch import codec as tc
-from tac_torch import consts as tconsts
 from tac_torch.config import PRESETS as TPRESETS
 from tac_torch.ops import bitpack as tbp
 
@@ -150,24 +149,14 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         tc.encode_clip_packed(x.T, TPRESETS["stereo44-128"])
 
 
-@pytest.mark.parametrize("change", [{"use_huffman": True, "stereo_mode": "ms"},
-                                    {"use_block_switch": True,
-                                     "stereo_mode": "ms"},
-                                    {"stereo_mode": "ms"}])
-def test_unported_stream_families_raise(change):
-    """Mid/side (fixed-rate, VBR or block-switched) is not ported: encode
-    and decode raise NotImplementedError instead of taking another path."""
-    cfg = TPRESETS["stereo44-128"].replace(**change)
-    with pytest.raises(NotImplementedError):
-        tapi.encode_array(np.zeros((4096, 2)), cfg, device="cpu")
-    hdr = tbs.PacHeader(
-        sample_rate=44100, n_channels=2, num_samples=4096, bitrate_bps=128000,
-        n_mdct_lines=1024, n_mdct_lines_short=128 if cfg.use_block_switch else 0,
-        n_scale_bits=4, n_mant_size_bits=4,
-        n_lines_long=tconsts.bands.lines_per_band(44100, 1024),
-        n_lines_short=(tconsts.bands.lines_per_band(44100, 128)
-                       if cfg.use_block_switch else None),
-        huffman=cfg.use_huffman, blockswitch=cfg.use_block_switch,
-        ms=cfg.stereo_mode == "ms")
-    with pytest.raises(NotImplementedError):
-        tapi.decode_array(tbs.write_header(hdr), device="cpu")
+@pytest.mark.parametrize("preset", ["stereo44-128-ms", "vbr-ms", "ms-bs",
+                                    "vbr-ms-bs"])
+def test_ms_odd_channels_rejected(preset):
+    """Mid/side butterflies adjacent channel pairs: a 3-channel array under
+    an M/S preset (fixed rate, VBR, block switching, the combo) raises
+    ValueError, as tests/test_multichannel.py::test_odd_channels_ms_rejected
+    holds for tac, and no stream is written."""
+    with pytest.raises(ValueError, match="even channel count"):
+        tapi.encode_array(np.zeros((600, 3)), TPRESETS[preset], device="cpu")
+    with pytest.raises(ValueError):
+        TPRESETS[preset].replace(n_channels=3)

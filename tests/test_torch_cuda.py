@@ -94,7 +94,8 @@ def test_k1_fma_row(dev):
     np.testing.assert_array_equal(want, [[2, 11]])
 
 
-@pytest.mark.parametrize("nf,cap", [(1075, 1518), (300, 587), (40, 6638)])
+@pytest.mark.parametrize("nf,cap", [(1075, 1518), (300, 587), (40, 6638),
+                                    (2100, 13030)])
 def test_k2_kernel_equals_plain(dev, nf, cap):
     rng = np.random.default_rng(nf)
     wids = rng.integers(0, 17, (2000, nf))
@@ -412,3 +413,157 @@ def test_filterbank_path_runs_k5(dev):
     y = filterbank.mdct_synthesis(lines, cfg, x.shape[1], device=dev).cpu().numpy()
     # f32 sums of 2 048 terms in sequence: about eps * sqrt(2048), -111 dB
     assert 10 * np.log10(np.mean(x ** 2) / np.mean((x - y) ** 2)) > 110.0
+
+
+# ------------------------------------------------------------ mid/side ---
+
+GOLDEN_CASES = {   # tools/golden.py:cases(), on the port's presets
+    "config1_mono16_64": ("mono16-64", {}, "mono16"),
+    "config2_stereo44_128": ("stereo44-128", {}, "stereo44"),
+    "config3_vbr_huffman": ("vbr-huffman", {}, "stereo44"),
+    "config5_blockswitch": ("streaming-ll", {}, "transient44"),
+    "config6_vbr_blockswitch": ("vbr-bs", {"n_mdct_lines": 256,
+                                           "n_mdct_lines_short": 64,
+                                           "n_channels": 1}, "transient44"),
+    "config7_ms_stereo": ("stereo44-128-ms", {}, "stereo44"),
+    "config8_ms_vbr": ("vbr-ms", {}, "stereo44"),
+    "config9_ms_blockswitch": ("ms-bs", {"n_mdct_lines": 256,
+                                         "n_mdct_lines_short": 64},
+                               "transient44_stereo"),
+    "config10_ms_vbr_blockswitch": ("vbr-ms-bs", {"n_mdct_lines": 256,
+                                                  "n_mdct_lines_short": 64},
+                                    "transient44_stereo"),
+}
+
+
+@pytest.mark.parametrize("name", list(GOLDEN_CASES))
+def test_parity_on_card_matches_goldens(dev, name):
+    """Parity precision on the card (cuFFT MDCT, f64 cuBLAS psy products,
+    the f64 allocation loops on CUDA tensors) hashes to
+    goldens/streams.json, as on the CPU."""
+    import hashlib
+    import json
+    import os
+    import sys
+
+    from tac_torch import api
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(repo, "tools"))
+    import golden
+
+    preset, change, clip = GOLDEN_CASES[name]
+    x, fs = golden.clips()[clip]
+    cfg = PRESETS[preset].replace(precision="parity", sample_rate=fs, **change)
+    data = api.encode_array(x, cfg, device=dev)
+    with open(os.path.join(repo, "goldens", "streams.json")) as f:
+        want = json.load(f)[name]
+    assert {"sha256": hashlib.sha256(data).hexdigest(),
+            "bytes": len(data)} == want
+
+
+def _ms_clips(n=3, seconds=1.0):
+    """n correlated stereo clips with strikes: the second channel 0.8 of
+    the first plus a little noise of its own."""
+    x = _strike_clip(seconds)[:, 0]
+    rng = np.random.default_rng(6)
+    return np.stack([np.stack([(0.6 + 0.2 * i) * x,
+                               (0.5 + 0.2 * i) * x
+                               + 0.01 * rng.standard_normal(len(x))])
+                     for i in range(n)])                  # [n, 2, T]
+
+
+@pytest.mark.parametrize("family", ["ms", "ms_bs"])
+def test_k1_real_joint_rows(dev, family):
+    """K1 at the joint rows an M/S encode gives it: the snapped SMRs of
+    pair-adjacent rows joined to [R/2, 50], 2·budget, with the shared map
+    (fixed-rate M/S) or each pair's state-selected widths (M/S × block
+    switching), equal to its plain version."""
+    from tac_torch import blockswitch as tb
+
+    x = torch.as_tensor(_ms_clips(), device=dev)
+    with torch.no_grad():
+        if family == "ms":
+            cfg = PRESETS["stereo44-128-ms"]
+            c = tc.make_consts(cfg, dev)
+            fr = tc.fb.frame_signal(tc.input_signal(x, cfg, c.dtype, dev),
+                                    cfg.n_mdct_lines).transpose(-3, -2)
+            _, smr = tc.analyze_frame(fr.reshape(-1, fr.shape[-1]), cfg, c)
+            nl, budget = torch.cat([c.n_lines, c.n_lines]), 2 * c.budget
+        else:
+            cfg = PRESETS["ms-bs"]
+            c = tb.make_bs_consts(cfg, dev)
+            frames, states = tb._frames_and_states(x, cfg, c, dev)
+            fr = frames.transpose(-3, -2).reshape(-1, frames.shape[-1])
+            st = states.transpose(-2, -1).reshape(-1)
+            assert (st == tb.SHORT).any()
+            _, sl, _, ss = tb.analyze_frame_bs(fr, st, cfg, c)
+            smr = tb.select_by_state(st, sl, ss)
+            nl = tb.state_n_lines(st, c).reshape(-1, 50)
+            budget = 2 * c.cl.budget
+        smr_q = tba.snap_smr(smr).float().reshape(-1, 50)
+    got, want = _k1_both(dev, smr_q, nl, np.full(smr_q.shape[0], budget))
+    np.testing.assert_array_equal(got, want)
+    # the joint rows do move bits between mid and side
+    bits = got.reshape(-1, 2, 25) * nl.reshape(-1, 2, 25).cpu().numpy()
+    assert bits.sum(-1).max() > budget // 2
+
+
+@pytest.mark.parametrize("family", ["vbr_ms", "vbr_ms_bs"])
+def test_k3_pair_lanes(dev, family):
+    """K3 with one lane per M/S pair over 2B = 50 bands, base 2·budget and
+    cap 4·2·budget, on the phase-1 output of a batched encode: the shared
+    map (vbr-ms) or per-frame state-selected widths [F, P, 50]
+    (vbr-ms-bs), equal to its plain version."""
+    from tac_torch import blockswitch as tb
+
+    x = torch.as_tensor(_ms_clips(), device=dev)
+    with torch.no_grad():
+        if family == "vbr_ms":
+            cfg = PRESETS["vbr-ms"]
+            c = tc.make_consts(cfg, dev)
+            frames = tc.fb.frame_signal(tc.input_signal(x, cfg, c.dtype, dev),
+                                        cfg.n_mdct_lines)
+            _, smr, bh = tc._vbr_phase1_lanes(tc.to_lanes(frames, cfg), cfg, c)
+            nl, budget = torch.cat([c.n_lines, c.n_lines]), c.budget
+        else:
+            cfg = PRESETS["vbr-ms-bs"]
+            c = tb.make_bs_consts(cfg, dev)
+            frames, states = tb._frames_and_states(x, cfg, c, dev)
+            lane_states = tb.lane_states(states, cfg)
+            _, _, smr, bh = tb._bs_vbr_phase1(tc.to_lanes(frames, cfg),
+                                              lane_states, cfg, c)
+            nl = tb.state_n_lines(lane_states.transpose(0, 1), c).repeat(1, 1, 2)
+            budget = c.cl.budget
+    assert smr.shape[1:] == (3, 50)
+    got, want = _k3_both(dev, smr, bh, nl, np.zeros(3), 2 * budget,
+                         cfg.reservoir_factor * 2 * budget)
+    for g, w, what in zip(got, want, ["alloc", "tid", "used", "res"]):
+        np.testing.assert_array_equal(g, w, err_msg=what)
+    assert (got[1] > 0).any()
+
+
+@pytest.mark.parametrize("preset", ["stereo44-128-ms", "vbr-ms", "ms-bs",
+                                    "vbr-ms-bs"])
+def test_ms_round_trip_runs_its_kernels(dev, preset):
+    """encode_array → bytes → decode_array on each M/S preset at full width
+    launches its kernels (K1 + K2 fixed rate; K2 + K3 + K4 under VBR), and
+    the card's stream decodes like the CPU's (SNR within 0.1 dB)."""
+    from tac_torch import api
+
+    x = _ms_clips(1)[0].T
+    cfg = PRESETS[preset]
+    counts = ([tk2.scatter_words_rows, tk3.vbr_reservoir_scan,
+               tk4.huffman_decode_sets] if cfg.use_huffman
+              else [tk1.water_fill_rows, tk2.scatter_words_rows])
+    before = [c.launches for c in counts]
+    data = api.encode_array(x, cfg, device=dev)
+    y = api.decode_array(data, "fast", device=dev)[0]
+    assert all(c.launches > b for c, b in zip(counts, before))
+    y_cpu = api.decode_array(api.encode_array(x, cfg, device="cpu"), "fast",
+                             device="cpu")[0]
+
+    def snr(a, b):
+        return 10 * np.log10(np.mean(a ** 2) / np.mean((a - b) ** 2))
+
+    assert abs(snr(x, y) - snr(x, y_cpu)) < 0.1

@@ -50,7 +50,7 @@ def test_port_imports_and_encodes_with_jax_and_tac_blocked():
         "tac_torch.ops.pack, tac_torch.ops.vbr_scan, tac_torch.ops.huffdec, "
         "tac_torch.ops.mdct_fused, tac_torch.blockswitch, tac_torch.filterbank, "
         "tac_torch.huffman, tac_torch._build\n"
-        "for preset in ('stereo44-128', 'vbr-huffman', 'vbr-bs'):\n"
+        "for preset in ('stereo44-128', 'vbr-huffman', 'vbr-bs', 'vbr-ms-bs'):\n"
         "    data = tac_torch.encode_array(np.zeros((3000, 2)), "
         "tac_torch.PRESETS[preset], device='cpu')\n"
         "    y, fs = tac_torch.decode_array(data, device='cpu')\n"

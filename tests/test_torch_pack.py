@@ -119,3 +119,24 @@ def test_framing_errors_are_typed():
         tbp.stream_to_rows(b"\x00" * 400, np.array([2]), np.array([300]), 8)
     with pytest.raises(ValueError):
         tbp.rows_to_stream(np.zeros((1, 2), np.uint32), np.array([65]))
+
+
+def test_k2_word_buffer_covers_every_preset():
+    """K2 keeps a row's words in shared memory (MAX_WORDS of them): every
+    preset's row capacity fits, the mid/side VBR rows (doubled budget with
+    a full reservoir, W32 408) included, as do the 4-channel pairwise
+    streams at twice the stereo bitrate."""
+    from tac_torch import blockswitch as tb
+    from tac_torch import codec as tc
+    from tac_torch.config import PRESETS
+
+    widest = 0
+    for cfg in PRESETS.values():
+        if cfg.use_block_switch:
+            cap = (tb.capacity_bits_bs_vbr(cfg) if cfg.use_huffman
+                   else tb.capacity_bits_bs(cfg))
+        else:
+            cap = tc.payload_capacity_bits(cfg)
+        widest = max(widest, -(-cap // 32))
+    assert widest == -(-tc.payload_capacity_bits(PRESETS["vbr-ms"]) // 32) == 408
+    assert widest <= tk2.MAX_WORDS

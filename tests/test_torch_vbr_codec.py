@@ -174,7 +174,7 @@ def test_vbr_batch_lanes_equal_solo_encodes(clip44):
 
 def test_vbr_entry_points_need_a_card_unless_told(monkeypatch):
     """Without a card the VBR entry points raise unless the caller passes
-    device="cpu"; mid/side VBR is still refused."""
+    device="cpu", mid/side VBR as well."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((2048, 2))
     cfg = TPRESETS["vbr-huffman"]
@@ -185,7 +185,9 @@ def test_vbr_entry_points_need_a_card_unless_told(monkeypatch):
         tapi.decode_array(data)
     with pytest.raises(RuntimeError):
         tc.encode_clip_vbr_packed(x.T, cfg)
-    with pytest.raises(NotImplementedError):
-        tc.encode_clip_vbr_packed(x.T, TPRESETS["vbr-ms"], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tc.encode_clip_vbr_packed(x.T, TPRESETS["vbr-ms"])
+    w, n = tc.encode_clip_vbr_packed(x.T, TPRESETS["vbr-ms"], device="cpu")
+    assert w.shape[:2] == n.shape[:2] == (2, 3)
     y, fs = tapi.decode_array(data, "fast", device="cpu")
     assert y.shape == x.shape and fs == 44100 and not y.any()
