@@ -65,16 +65,32 @@ Phases, each of which fails the run (non-zero exit) on error:
      presets run (printed, not gated);
  11. parity on the card: the nine golden streams of goldens/streams.json
      (config1/2/3/5/6 and the M/S config7-10) encoded in parity precision
-     on the card must hash to their goldens.
+     on the card must hash to their goldens;
+ 12. streaming and random access (``phase_stream``): the nine golden clips
+     streamed in parity (one push; seeded random pushes with a mid-stream
+     StreamState resume) against their goldens, and their StreamDecoders
+     against decode_array exactly; the stream path at full width,
+     streaming-ll (mono, H = 256, 2 584 pushes of one half-block) and
+     vbr-bs (stereo, H = 1 024, 646 pushes) on 15 s, with push wall times
+     against the hop, the fast-mode contract against the offline encode
+     and K1 / K3 on inputs captured in mid-stream (K3 resumed from a
+     carried fill) against their plain versions; the seek path,
+     decode_range on 15 s vbr-huffman and vbr-ms-bs streams at
+     tests/test_seek.py's ranges (fast within 2e-5; vbr-ms-bs in parity
+     too, exact); and
+     tests/test_fuzz.py's mutations of four families through every decode
+     surface on the card, the context alive after each case.
 It prints "profile", "main_path", "profile_vbr", "vbr_path", "mdct_path",
 "profile_bs", "bs_path", "profile_bs_vbr", "bs_vbr_path", one "ms_path" per
-M/S family, two "ms_vs_lr", "parity_on_card" and "kernels" JSON lines, and
+M/S family, two "ms_vs_lr", "parity_on_card", "stream_parity_on_card",
+"stream_path", "seek_path", "fuzz_on_card" and "kernels" JSON lines, and
 last {"ok": true, "device": {...}}. Without CUDA, or without the tac_torch
 package beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -992,6 +1008,455 @@ def phase_parity_on_card(card: str) -> dict:
     return {"matched": len(matched)}
 
 
+@contextlib.contextmanager
+def captured_kernel_inputs(log: dict):
+    """While active, records the arguments of every K1 and K3 call the codec
+    makes (``codec.water_fill_rows`` / ``codec.vbr_reservoir_scan``) under
+    log["water_fill"] / log["vbr_scan"], and calls through."""
+    from tac_torch import codec
+
+    saved = {"water_fill": codec.water_fill_rows,
+             "vbr_scan": codec.vbr_reservoir_scan}
+
+    def recorder(name):
+        def call(*args, **kw):
+            log.setdefault(name, []).append((args, kw))
+            return saved[name](*args, **kw)
+        return call
+
+    codec.water_fill_rows = recorder("water_fill")
+    codec.vbr_reservoir_scan = recorder("vbr_scan")
+    try:
+        yield log
+    finally:
+        codec.water_fill_rows = saved["water_fill"]
+        codec.vbr_reservoir_scan = saved["vbr_scan"]
+
+
+def wall_stats(ms: list, hop_ms: float) -> dict:
+    """p50 / p99 / max of per-call wall times (ms) and the share of calls
+    slower than the hop."""
+    a = np.asarray(ms)
+    return {"calls": len(a), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)), "max_ms": float(a.max()),
+            "share_slower_than_hop": float(np.mean(a > hop_ms)),
+            "hop_ms": hop_ms}
+
+
+def seek_ranges(n: int, h: int, seed: int = 7) -> list:
+    """tests/test_seek.py's kinds of ranges over n samples at hop h: the
+    whole clip, the first and the last sample, aligned, interior, and four
+    seeded random ones."""
+    rng = np.random.default_rng(seed)
+    out = [(0, n), (0, 1), (n - 1, n), (h, 3 * h), (h - 1, h + 1),
+           (5 * h + 17, 7 * h - 3)]
+    return out + [tuple(int(v) for v in sorted(rng.integers(0, n, 2)))
+                  for _ in range(4)]
+
+
+def fuzz_mutants(data: bytes, off: int, rng, n_flip: int, n_trunc: int,
+                 n_prefix: int):
+    """tests/test_fuzz.py's mutation families: 1-16 payload bit flips,
+    truncations inside the payload, random u16 values over a true length
+    prefix."""
+    n = len(data)
+    for _ in range(n_flip):
+        buf = bytearray(data)
+        for b in rng.integers(off * 8, n * 8, rng.integers(1, 17)):
+            buf[b // 8] ^= 1 << (b % 8)
+        yield bytes(buf)
+    for _ in range(n_trunc):
+        yield data[:int(rng.integers(off, n))]
+    prefixes, pos = [], off
+    while pos + 2 <= n:
+        prefixes.append(pos)
+        pos += 2 + (data[pos] | (data[pos + 1] << 8))
+    for _ in range(n_prefix):
+        buf = bytearray(data)
+        p = prefixes[int(rng.integers(0, len(prefixes)))]
+        v = int(rng.integers(0, 1 << 16))
+        buf[p], buf[p + 1] = v & 0xFF, v >> 8
+        yield bytes(buf)
+
+
+def differing_frames(a: bytes, b: bytes) -> tuple:
+    """Two streams of one header: (frames whose blocks differ, the first of
+    them or None, frames)."""
+    from tac_torch.bitstream import read_header, split_blocks
+    from tac_torch.dsp.mdct import num_frames
+
+    hdr, off = read_header(a)
+    c = hdr.n_channels
+    f = num_frames(hdr.num_samples, hdr.n_mdct_lines)
+    (oa, la), (ob, lb) = (split_blocks(d_, read_header(d_)[1], f * c)
+                          for d_ in (a, b))
+    diff = sorted({i // c for i in range(f * c)
+                   if a[oa[i]:oa[i] + la[i]] != b[ob[i]:ob[i] + lb[i]]})
+    return len(diff), (diff[0] if diff else None), f
+
+
+def phase_stream(card: str) -> dict:
+    """Phase 12: streaming and random access on the card.
+
+    stream_parity_on_card: the nine golden clips streamed in parity, all in
+    one push and in seeded random pushes of 1-699 samples with one
+    mid-stream resume from a StreamState blob, each hashing to its golden;
+    each stream's StreamDecoder, fed seeded random byte pieces, equals
+    decode_array of the same bytes exactly.
+    stream_path: PRESETS["streaming-ll"] (mono, H = 256) on 15 s, one
+    half-block a push, and PRESETS["vbr-bs"] (stereo, H = 1024) on 15 s in
+    1 024-sample pushes, nothing cut; each stream's StreamDecoder fed one
+    frame's bytes at a time. Push wall times against the hop, audio-s per
+    wall-s, launches per push; the fast-mode contract against the offline
+    encode of the same clip (bytes within 0.1 %, decode >= 40 dB); K1 / K3
+    on inputs captured from pushes in mid-stream (K3 from a carried fill
+    above 0) against their plain versions, exactly.
+    seek_path: decode_range on a vbr-huffman and a vbr-ms-bs stream of 15 s
+    stereo at tests/test_seek.py's ranges, fast within 2e-5 of the full
+    decode, and the vbr-ms-bs one in parity exact.
+    fuzz_on_card: tests/test_fuzz.py's mutations of raw, VBR, combo and
+    ms-combo streams through decode_array, decode_range and
+    StreamDecoder.push; a typed error or finite audio of the right shape,
+    and the context alive (a synchronize) after every case.
+    Returns per kernel its launches on the stream and seek paths and its
+    worst error here."""
+    import hashlib
+    import os
+
+    import torch
+
+    from tac_torch import api
+    from tac_torch.bitstream import CorruptStreamError, read_header
+    from tac_torch.config import PRESETS
+    from tac_torch.ops import alloc as k1
+    from tac_torch.ops import mdct_fused as k5
+    from tac_torch.ops import vbr_scan as k3
+    from tac_torch.streaming import StreamDecoder, StreamEncoder, StreamState
+
+    dev = torch.device("cuda")
+    # K5 is counted too: no codec path calls it, so it must stay at 0 here
+    counters = {**kernel_counters(), "mdct_fused": k5.mdct_frames_fused}
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import golden
+
+    def zero():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # ---- stream_parity_on_card
+    t_phase = time.perf_counter()
+    with open(golden.GOLDEN_PATH) as f:
+        want = json.load(f)
+    material = golden.clips()
+    parity = {}
+    for name, (preset, change, clip) in GOLDEN_CASES.items():
+        x, fs = material[clip]
+        cfg = PRESETS[preset].replace(precision="parity", sample_rate=fs,
+                                      **change)
+        c = x.shape[1]
+        enc = StreamEncoder(cfg, n_channels=c, device=dev)
+        one = enc.header(len(x)) + enc.push(x) + enc.flush()
+        rng = np.random.default_rng(5)
+        enc = StreamEncoder(cfg, n_channels=c, device=dev)
+        parts, i, resumed = [enc.header(len(x))], 0, False
+        while i < len(x):
+            n = int(rng.integers(1, 700))
+            parts.append(enc.push(x[i:i + n]))
+            i += n
+            if not resumed and i >= len(x) // 2:
+                blob = enc.state.to_bytes()
+                enc = StreamEncoder(cfg, n_channels=c, device=dev)
+                enc.state = StreamState.from_bytes(blob)
+                resumed = True
+        chunked = b"".join(parts) + enc.flush()
+        dec, off = StreamDecoder.from_header(chunked, precision="parity",
+                                             device=dev)
+        pieces, pos = [], off
+        while pos < len(chunked):
+            step = int(rng.integers(1, 1500))
+            pieces.append(dec.push(chunked[pos:pos + step]))
+            pos += step
+        y_stream = np.concatenate(pieces)
+        y_full = api.decode_array(chunked, "parity")[0]
+        parity[name] = {
+            "one_push": hashlib.sha256(one).hexdigest() == want[name]["sha256"],
+            "random_pushes_resumed":
+                hashlib.sha256(chunked).hexdigest() == want[name]["sha256"],
+            "decoder_exact": (y_stream.shape == y_full.shape
+                              and bool(np.array_equal(y_stream, y_full)))}
+    print(json.dumps({"stream_parity_on_card": {
+        "goldens": len(parity), "streams": parity,
+        "seconds": time.perf_counter() - t_phase, "card": card}}))
+    check(all(all(v.values()) for v in parity.values()),
+          "a parity stream on the card differs from its golden or its "
+          "decoder from decode_array")
+
+    # ---- stream_path: counters zeroed just before, read just after
+    t_phase = time.perf_counter()
+    xs = make_switching_clips(1, SECONDS)[0]                 # [2, T]
+    cases = (("streaming-ll", PRESETS["streaming-ll"], xs[0].astype(np.float64),
+              256),
+             ("vbr-bs", PRESETS["vbr-bs"], xs.T.astype(np.float64), 1024))
+    offline, t_step = {}, time.perf_counter()
+    with torch.no_grad():
+        for what, cfg, x, hop in cases:      # warm: 40 pushes, the offline run
+            enc = StreamEncoder(cfg, n_channels=x.reshape(len(x), -1).shape[1],
+                                device=dev)
+            for i in range(40):
+                enc.push(x[i * hop:(i + 1) * hop])
+            data = api.encode_array(x, cfg)
+            offline[what] = (data, api.decode_array(data, "fast")[0])
+    steps = {"warm_and_offline_s": time.perf_counter() - t_step}
+    zero()
+    records, captured = {}, {}
+    launches_stream = dict.fromkeys(counters, 0)   # encode + decode windows
+    with torch.no_grad():
+        for what, cfg, x, hop in cases:
+            c = x.reshape(len(x), -1).shape[1]
+            before = read()
+            enc = StreamEncoder(cfg, n_channels=c, device=dev)
+            n_push = -(-len(x) // hop)
+            marks = {n_push // 3, n_push // 2, 2 * n_push // 3}
+            frames, enc_ms, log = [], [], {}
+            t0 = time.perf_counter()
+            for i in range(n_push):
+                t1 = time.perf_counter()
+                if i in marks:
+                    with captured_kernel_inputs(log):
+                        b = enc.push(x[i * hop:(i + 1) * hop])
+                else:
+                    b = enc.push(x[i * hop:(i + 1) * hop])
+                enc_ms.append((time.perf_counter() - t1) * 1e3)
+                frames.append(b)
+            frames.append(enc.flush())
+            enc_wall = time.perf_counter() - t0
+            mid = read()
+            header = enc.header(len(x))
+            dec = StreamDecoder.from_header(header, device=dev)[0]
+            outs, dec_ms = [], []
+            t0 = time.perf_counter()
+            for b in frames:
+                if not b:
+                    continue
+                t1 = time.perf_counter()
+                outs.append(dec.push(b))
+                dec_ms.append((time.perf_counter() - t1) * 1e3)
+            dec_wall = time.perf_counter() - t0
+            after = read()
+            for k_ in launches_stream:
+                launches_stream[k_] += after[k_] - before[k_]
+            captured[what] = log
+            stream = header + b"".join(frames)
+            y_stream = np.concatenate(outs)
+            data_off, y_off = offline[what]
+            n_diff, first_diff, n_frames = differing_frames(stream, data_off)
+            y_full = api.decode_array(stream, "fast")[0]
+            err_dec = float(np.abs(y_stream - y_full).max())
+            snr_vs_offline = snr_db(y_off.astype(np.float64),
+                                    y_stream.astype(np.float64))
+            audio_s = len(x) / cfg.sample_rate
+            hop_ms = hop / cfg.sample_rate * 1e3
+            records[what] = {
+                "config": f"{what} fast", "channels": c, "seconds": audio_s,
+                "hop_samples": hop, "pushes": n_push,
+                "encode_push": wall_stats(enc_ms, hop_ms),
+                "encode_audio_s_per_wall_s": audio_s / enc_wall,
+                "decode_push": wall_stats(dec_ms, hop_ms),
+                "decode_audio_s_per_wall_s": audio_s / dec_wall,
+                "launches_encode": {k_: mid[k_] - before[k_] for k_ in mid},
+                "launches_decode": {k_: after[k_] - mid[k_] for k_ in mid},
+                "stream_bytes": len(stream), "offline_bytes": len(data_off),
+                "frames_differing_from_offline": n_diff,
+                "first_differing_frame": first_diff, "frames": n_frames,
+                "encode_wall_s": enc_wall, "decode_wall_s": dec_wall,
+                "decoder_vs_decode_array_max_abs": err_dec,
+                "snr_db_vs_offline_decode": snr_vs_offline}
+            records[what]["launches_per_push"] = {
+                k_: v / n_push for k_, v in records[what]["launches_encode"].items()}
+            check(y_stream.shape == y_full.shape == (len(x), c),
+                  f"{what}: streamed decode shape {y_stream.shape}")
+            check(err_dec <= 2e-5, f"{what}: StreamDecoder differs from "
+                  f"decode_array by {err_dec}")
+            check(abs(len(stream) - len(data_off)) <= max(4, len(data_off) // 1000),
+                  f"{what}: stream {len(stream)} B vs offline {len(data_off)} B")
+            check(snr_vs_offline >= 40.0, f"{what}: streamed decode "
+                  f"{snr_vs_offline:.2f} dB from the offline decode")
+    steps["streams_s"] = time.perf_counter() - t_step - steps["warm_and_offline_s"]
+    t_step = time.perf_counter()
+    print(f"stream path launches: {launches_stream}")
+    check(all(launches_stream[k_] > 0 for k_ in kernel_counters()),
+          "a kernel of the stream path was never launched")
+    check(launches_stream["mdct_fused"] == 0, "K5 launched on the stream path")
+    with torch.no_grad():                    # device kernels per push
+        for what, cfg, x, hop in cases:
+            enc = StreamEncoder(cfg, n_channels=x.reshape(len(x), -1).shape[1],
+                                device=dev)
+            for i in range(5):
+                enc.push(x[i * hop:(i + 1) * hop])
+            prof = profile_device(lambda: [enc.push(x[i * hop:(i + 1) * hop])
+                                           for i in range(5, 9)])
+            records[what]["profile_4_pushes"] = {
+                k_: prof[k_] for k_ in ("wall_ms", "device_busy_ms",
+                                        "idle_share", "launches")}
+            records[what]["device_launches_per_push"] = prof["launches"] / 4
+    steps["profile_s"] = time.perf_counter() - t_step
+
+    # the captured mid-stream kernel inputs, kernel against plain
+    errs = {"water_fill": 0, "vbr_scan": 0}
+    res0_max = 0
+    with torch.no_grad():
+        for args, kw in captured["streaming-ll"].get("water_fill", []):
+            errs["water_fill"] = max(errs["water_fill"], worst_err(
+                k1.water_fill_rows(*args, **kw),
+                k1.water_fill_rows_plain(*args, **kw)))
+        for args, kw in captured["vbr-bs"].get("vbr_scan", []):
+            res0_max = max(res0_max, int(args[3].max().item()))
+            errs["vbr_scan"] = max(errs["vbr_scan"], worst_err(
+                k3.vbr_reservoir_scan(*args, **kw),
+                k3.vbr_reservoir_scan_plain(*args, **kw)))
+    n_k1 = len(captured["streaming-ll"].get("water_fill", []))
+    n_k3 = len(captured["vbr-bs"].get("vbr_scan", []))
+    print(f"  K1 on {n_k1} captured streaming-ll pushes: max_abs_err "
+          f"{errs['water_fill']}; K3 on {n_k3} captured vbr-bs pushes, "
+          f"carried fill up to {res0_max}: max_abs_err {errs['vbr_scan']}")
+    check(n_k1 > 0 and n_k3 > 0, "no K1 / K3 input captured in mid-stream")
+    check(res0_max > 0, "no captured K3 push resumed from a fill above 0")
+    check(errs["water_fill"] == 0 and errs["vbr_scan"] == 0,
+          "a kernel differs from its plain version on mid-stream inputs")
+    print(json.dumps({"stream_path": {
+        **records, "launches": launches_stream,
+        "captured_k1_pushes": n_k1, "captured_k3_pushes": n_k3,
+        "captured_k3_res0_max": res0_max, "max_abs_err": errs,
+        "seconds": time.perf_counter() - t_phase, "seconds_by_step": steps,
+        "card": card}}))
+
+    # ---- seek_path: the streams and full decodes first; counters zeroed
+    # just before the seeks, read just after
+    t_phase = time.perf_counter()
+    # one parity stream is enough here: the CPU tests hold parity seeks
+    # exact in every family, and a 15 s parity encode costs ~13 s
+    seek_cases = {"vbr-huffman": (PRESETS["vbr-huffman"],
+                                  make_clips(1, SECONDS)[0].T, ("fast",)),
+                  "vbr-ms-bs": (PRESETS["vbr-ms-bs"], xs.T,
+                                ("fast", "parity"))}
+    streams = {}
+    with torch.no_grad():
+        for what, (cfg, x, precs) in seek_cases.items():   # not the seek path
+            for prec in precs:
+                data = api.encode_array(x.astype(np.float64),
+                                        cfg.replace(precision=prec))
+                streams[what, prec] = (data, api.decode_array(data, prec)[0])
+        t_seeks = time.perf_counter()
+        zero()
+        seeks = {}
+        for (what, prec), (data, full) in streams.items():
+            h = read_header(data)[0].n_mdct_lines
+            worst, ms_ = 0.0, []
+            for s0, s1 in seek_ranges(full.shape[0], h):
+                t1 = time.perf_counter()
+                got = api.decode_range(data, s0, s1, prec)[0]
+                ms_.append((time.perf_counter() - t1) * 1e3)
+                check(got.shape == (s1 - s0, full.shape[1]),
+                      f"seek {what} {prec} {s0}:{s1} shape {got.shape}")
+                d = float(np.abs(got - full[s0:s1]).max()) if s1 > s0 else 0.0
+                worst = max(worst, d)
+            gate = 2e-5 if prec == "fast" else 0.0
+            check(worst <= gate, f"seek {what} {prec}: {worst} from the full "
+                  "decode")
+            seeks[f"{what} {prec}"] = {
+                "seeks": len(ms_), "max_abs_vs_full": worst, "gate": gate,
+                "ms_mean": float(np.mean(ms_)), "ms_p50": float(np.median(ms_)),
+                "ms_max": float(np.max(ms_)), "bytes": len(data)}
+        launches_seek = read()
+    print(f"seek path launches: {launches_seek}")
+    check(launches_seek["huffdec"] > 0, "K4 never launched on the seek path")
+    check(launches_seek["mdct_fused"] == 0, "K5 launched on the seek path")
+    print(json.dumps({"seek_path": {
+        "clip_seconds": SECONDS, "channels": 2, "ranges": seeks,
+        "launches": launches_seek, "seconds": time.perf_counter() - t_phase,
+        "seconds_seeks": time.perf_counter() - t_seeks, "card": card}}))
+
+    # ---- fuzz_on_card
+    t_phase = time.perf_counter()
+    base = PRESETS["mono16-64"]
+    fams = {"raw": base.replace(precision="fast"),
+            "vbr": base.replace(use_huffman=True, precision="fast",
+                                use_psy=True, alloc_mode="greedy"),
+            "combo": base.replace(use_block_switch=True, use_huffman=True,
+                                  n_mdct_lines_short=128, precision="fast"),
+            "ms-combo": base.replace(n_channels=2, stereo_mode="ms",
+                                     use_block_switch=True, use_huffman=True,
+                                     n_mdct_lines_short=128, precision="fast",
+                                     use_psy=True, alloc_mode="greedy")}
+    t = np.arange(int(16000 * 0.35)) / 16000
+    sig = 0.5 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 990 * t)
+    sig[2000:2100] += np.linspace(0, 0.4, 100)
+    stereo = np.stack([sig, np.roll(sig, 37) * 0.8], axis=1)
+
+    def via_decode_array(m, rng):
+        hdr = read_header(m)[0]
+        y = api.decode_array(m, "fast")[0]
+        return y, (hdr.num_samples, hdr.n_channels)
+
+    def via_decode_range(m, rng):
+        hdr = read_header(m)[0]
+        s0, s1 = sorted(int(v) for v in
+                        rng.integers(-100, hdr.num_samples + 100, 2))
+        lo = min(max(s0, 0), hdr.num_samples)
+        hi = max(min(s1, hdr.num_samples), lo)
+        return api.decode_range(m, s0, s1, "fast")[0], (hi - lo, hdr.n_channels)
+
+    def via_stream_decoder(m, rng):
+        dec, pos = StreamDecoder.from_header(m, device=dev)
+        outs = [np.zeros((0, dec.cfg.n_channels), np.float32)]
+        while pos < len(m):
+            n = int(rng.integers(1, 900))
+            outs.append(dec.push(m[pos:pos + n]))
+            pos += n
+        y = np.concatenate(outs)
+        return y, (min(y.shape[0], dec.num_samples), dec.cfg.n_channels)
+
+    surfaces = {"decode_array": via_decode_array,
+                "decode_range": via_decode_range,
+                "stream_decoder": via_stream_decoder}
+    fuzz = {}
+    with torch.no_grad():
+        for fam, cfg in fams.items():
+            data = api.encode_array(stereo if cfg.n_channels == 2 else sig, cfg)
+            off = read_header(data)[1]
+            for surf, fn in surfaces.items():
+                rng = np.random.default_rng(
+                    [list(fams).index(fam), list(surfaces).index(surf)])
+                tally = {"typed_error": 0, "audio": 0}
+                for m in fuzz_mutants(data, off, rng, 40, 12, 12):
+                    try:
+                        y, shape = fn(m, rng)
+                    except (CorruptStreamError, ValueError):
+                        tally["typed_error"] += 1
+                    else:
+                        check(y.shape == shape and bool(np.isfinite(y).all()),
+                              f"fuzz {fam} {surf}: shape {y.shape} vs {shape} "
+                              "or a non-finite sample")
+                        tally["audio"] += 1
+                    torch.cuda.synchronize()       # the context is alive
+                fuzz[f"{fam} {surf}"] = tally
+    print(json.dumps({"fuzz_on_card": {
+        "cases": sum(sum(v.values()) for v in fuzz.values()),
+        "typed_error": sum(v["typed_error"] for v in fuzz.values()),
+        "audio": sum(v["audio"] for v in fuzz.values()), "by_case": fuzz,
+        "seconds": time.perf_counter() - t_phase, "card": card}}))
+
+    return {name: {"launches_stream_path": launches_stream[name],
+                   "launches_seek_path": launches_seek[name],
+                   "max_abs_err": errs.get(name, 0)}
+            for name in counters}
+
+
 def main() -> int:
     import torch
 
@@ -1470,11 +1935,13 @@ def main() -> int:
                           "vbr-huffman": (snrs_v, sum(len(s_) for s_ in streams_v))},
                   card)
     phase_parity_on_card(card)
+    st = phase_stream(card)
 
     def with_bs(entry: dict) -> dict:
-        """A kernel's entry plus what the block-switch and M/S phases
-        measured."""
-        for extra in (dict(bs[entry["name"]]), dict(ms[entry["name"]])):
+        """A kernel's entry plus what the block-switch, M/S and streaming
+        phases measured."""
+        for extra in (dict(bs[entry["name"]]), dict(ms[entry["name"]]),
+                      dict(st[entry["name"]])):
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        extra.pop("max_abs_err"))
             entry = {**entry, **extra}
@@ -1533,7 +2000,9 @@ def main() -> int:
          "ms": k4_ms, "ms_per_clip_launch": k4_clip_ms, "sets_walked": sets_present,
          "plain_ms": k4_plain_ms, "bound_ms": b4, "bound_by": b4_by,
          "library_ms": None},
-    )] + [k5_entry]
+    )] + [{**k5_entry,
+           "launches_stream_path": st["mdct_fused"]["launches_stream_path"],
+           "launches_seek_path": st["mdct_fused"]["launches_seek_path"]}]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

@@ -182,13 +182,28 @@ def window_states(t_flags: torch.Tensor, f: int) -> torch.Tensor:
     want = tp[..., :f] | tp[..., 1:f + 1]                # want[i] = t[i-1]|t[i]
     wprev = pad(want, (1, 0))[..., :f]
     wnext = pad(want, (0, 1))[..., 1:]
-    short = want | (wprev & wnext)
-    start = ~short & wnext
-    stop = ~short & ~start & wprev
+    return _states(want, wprev, wnext)
+
+
+def _states(want, want_prev, want_next) -> torch.Tensor:
+    """Each frame's state from its own SHORT want and its neighbours'."""
+    short = want | (want_prev & want_next)
+    start = ~short & want_next
+    stop = ~short & ~start & want_prev
     out = torch.full(short.shape, LONG, dtype=torch.int32, device=short.device)
     out = torch.where(stop, STOP, out)
     out = torch.where(start, START, out)
     return torch.where(short, SHORT, out)
+
+
+def stream_states(t: torch.Tensor, m: int) -> torch.Tensor:
+    """Window states int32 [..., m] of m streaming frames from the carried
+    and new transient flags t = (t_{e-2}, ..., t_{e+m}) bool [..., m+3], e
+    the first frame's index (tac/blockswitch.py:_stream_states): the
+    neighbour logic of ``window_states``, read out of the history."""
+    tm2, tm1 = t[..., 0:m], t[..., 1:m + 1]
+    t0, tp1 = t[..., 2:m + 2], t[..., 3:m + 3]
+    return _states(tm1 | t0, tm2 | tm1, t0 | tp1)
 
 
 # ----------------------------------------------------------------- encode ---
@@ -372,15 +387,13 @@ def lane_states(states: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
     return codec.to_lanes(states[..., None], cfg)[:, :, 0, 0]
 
 
-def encode_clip_bs_packed(x, cfg: CodecConfig, device=None):
-    """Fixed-rate block-switch encode + bit pack on the device. x: float
-    [..., C, T] → (words int32 [..., C, F, W32] holding 32-bit patterns,
-    nbits int64 [..., C, F]). All leading axes flatten into one row axis,
-    coded in chunks of codec.ENC_CHUNK rows; mid/side orders the rows
-    frame-major so that each pair's rows are adjacent (an even chunk)."""
-    dev = resolve_device(device)
-    c = make_bs_consts(cfg, dev)
-    frames, states = _frames_and_states(x, cfg, c, dev)
+def encode_frames_bs(frames, states, cfg: CodecConfig, c: BsConsts):
+    """frames f[..., C, F, N] (of the butterflied signal under M/S), states
+    int32 [..., C, F] → (words int32 [..., C, F, W32] holding 32-bit
+    patterns, nbits int64 [..., C, F]). All leading axes flatten into one
+    row axis, coded in chunks of codec.ENC_CHUNK rows; mid/side orders the
+    rows frame-major so that each pair's rows are adjacent (an even
+    chunk)."""
     ms = cfg.stereo_mode == "ms"
     if ms:
         frames, states = frames.transpose(-3, -2), states.transpose(-2, -1)
@@ -402,6 +415,15 @@ def encode_clip_bs_packed(x, cfg: CodecConfig, device=None):
     return words, nbits
 
 
+def encode_clip_bs_packed(x, cfg: CodecConfig, device=None):
+    """Fixed-rate block-switch encode + bit pack on the device. x: float
+    [..., C, T] → (words int32 [..., C, F, W32] holding 32-bit patterns,
+    nbits int64 [..., C, F])."""
+    dev = resolve_device(device)
+    c = make_bs_consts(cfg, dev)
+    return encode_frames_bs(*_frames_and_states(x, cfg, c, dev), cfg, c)
+
+
 def _bs_code(state, ovs, alloc_code, sf, mant) -> BsFrameCode:
     fc = FrameCode(ovs=ovs, alloc_code=alloc_code, scale=sf, mant=mant)
     return BsFrameCode(state=state, long=fc, short=fc)
@@ -420,20 +442,23 @@ def _unpack_bs_fields(wf: torch.Tensor, cfg: CodecConfig,
                     codec.read_raw_mantissas(wf, mant_start, m_line))
 
 
-def _decode_rows(words, cfg: CodecConfig, t: int, device, unpack):
-    dev = resolve_device(device)
-    c = make_bs_consts(cfg, dev)
-    w = torch.as_tensor(words).to(dev)
-    lead = w.shape[:-1]                                  # [..., C, F]
+def decode_frames_bs(words, cfg: CodecConfig, c: BsConsts):
+    """words: int32 [..., W32] block-switch payload rows → [..., N]
+    windowed frame audio, before the overlap-add."""
+    return _decode_frames(words, cfg, c, _unpack_bs_fields)
+
+
+def _decode_frames(words, cfg: CodecConfig, c: BsConsts, unpack):
+    w = torch.as_tensor(words).to(c.cl.window.device)
     bc = unpack(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
-    y = decode_frame_bs(bc, cfg, c)                      # [K, N]
-    return codec.output_signal(y.reshape(*lead, -1), cfg, t)
+    return decode_frame_bs(bc, cfg, c).reshape(*w.shape[:-1], -1)
 
 
 def decode_clip_bs_packed(words, cfg: CodecConfig, t: int, device=None):
     """words: int32 [..., C, F, W32] block-switch payload rows → [..., C, T]
     audio, on `device` (CUDA unless named)."""
-    return _decode_rows(words, cfg, t, device, _unpack_bs_fields)
+    c = make_bs_consts(cfg, resolve_device(device))
+    return codec.output_signal(decode_frames_bs(words, cfg, c), cfg, t)
 
 
 # ------------------------------------------------ Huffman × block switching ---
@@ -461,17 +486,17 @@ def _bs_vbr_phase1(frames, states, cfg: CodecConfig, c: BsConsts):
 
 def _encode_bs_vbr_lanes_to_words(frames, states, res0, cfg: CodecConfig,
                                   c: BsConsts):
-    """Whole-clip combo encode over independent lanes. frames f[L, F, K, N],
-    states int32 [L, F], res0 int32 [L] → (words int32 [L, F, K, W32],
-    nbits int64 [L, F, K]). Phase 2 is the reservoir chain (K3) on the
-    state-selected SMRs and costs with per-frame band widths [F, L, K·B]
-    and base K·budget (an M/S pair's joint chain at K = 2); phase 3
-    (quantize at the chain's allocations, fields, pack) runs per row
-    chunk."""
+    """Combo encode over independent lanes. frames f[L, F, K, N], states
+    int32 [L, F], res0 int32 [L] → (words int32 [L, F, K, W32], nbits int64
+    [L, F, K], res int32 [L, F]: the fill after every frame). Phase 2 is
+    the reservoir chain (K3) on the state-selected SMRs and costs with
+    per-frame band widths [F, L, K·B] and base K·budget (an M/S pair's
+    joint chain at K = 2); phase 3 (quantize at the chain's allocations,
+    fields, pack) runs per row chunk."""
     lanes, f, k = frames.shape[:3]
     cap = capacity_bits_bs_vbr(cfg)
     ll, ls, smr, bh = _bs_vbr_phase1(frames, states, cfg, c)
-    allocs, tids, _, _ = codec._reservoir_chain(
+    allocs, tids, _, ress = codec._reservoir_chain(
         smr, bh, state_n_lines(states.transpose(0, 1), c).repeat(1, 1, k),
         res0, k * c.cl.budget, cfg.reservoir_factor * k * c.cl.budget, cfg)
     del smr, bh
@@ -484,7 +509,19 @@ def _encode_bs_vbr_lanes_to_words(frames, states, res0, cfg: CodecConfig,
         words.append(w)
         nbits.append(n)
     return (torch.cat(words).reshape(lanes, f, k, -1),
-            torch.cat(nbits).reshape(lanes, f, k))
+            torch.cat(nbits).reshape(lanes, f, k), ress.transpose(0, 1))
+
+
+def encode_frames_bs_vbr(frames, states, res0, cfg: CodecConfig,
+                         c: BsConsts):
+    """frames f[..., C, F, N] (butterflied under M/S), states int32
+    [..., C, F], res0 int32 [L] → (words int32 [..., C, F, W32], nbits
+    int64 [..., C, F], res int32 [L, F]): every channel (or M/S pair) its
+    own reservoir lane, resumed from its fill."""
+    words, nbits, ress = _encode_bs_vbr_lanes_to_words(
+        codec.to_lanes(frames, cfg), lane_states(states, cfg), res0, cfg, c)
+    lead = frames.shape[:-2]                             # [..., C]
+    return codec.from_lanes(words, lead), codec.from_lanes(nbits, lead), ress
 
 
 def encode_clip_bs_vbr_packed(x, cfg: CodecConfig, device=None):
@@ -495,12 +532,62 @@ def encode_clip_bs_vbr_packed(x, cfg: CodecConfig, device=None):
     dev = resolve_device(device)
     c = make_bs_consts(cfg, dev)
     frames, states = _frames_and_states(x, cfg, c, dev)
-    lanes = codec.to_lanes(frames, cfg)
-    res0 = torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev)
-    words, nbits = _encode_bs_vbr_lanes_to_words(
-        lanes, lane_states(states, cfg), res0, cfg, c)
-    lead = frames.shape[:-2]                             # [..., C]
-    return codec.from_lanes(words, lead), codec.from_lanes(nbits, lead)
+    res0 = torch.zeros(codec.n_lanes(frames.shape[:-2], cfg),
+                       dtype=torch.int32, device=dev)
+    return encode_frames_bs_vbr(frames, states, res0, cfg, c)[:2]
+
+
+# ------------------------------------------------ streaming frame cores ---
+
+def ms_stream_prep(prior, look, halves, t_hist, cfg: CodecConfig,
+                   c: BsConsts):
+    """The front half of every block-switch streaming core
+    (tac/blockswitch.py:_ms_stream_prep, and its L/R form).
+
+    With e the next frame to emit and h_j the half-block of samples
+    [jH, (j+1)H): prior [C, H] = h_{e-1}, look [C, H] = h_e, halves
+    [C, m, H] = h_{e+1..e+m} (L/R, arrays or tensors), t_hist bool [L, 2] =
+    (t_{e-2}, t_{e-1}) per channel, or per pair under M/S → (frames f[C, m,
+    N] of frame j = [h_{j-1} | h_j], butterflied under M/S; states int32
+    [C, m], a pair's two channels sharing the state of their OR-ed flags;
+    t bool [L, m+3] = (t_{e-2}, ..., t_{e+m}), whose columns m and m+1 are
+    the next t_hist)."""
+    dev, dt = c.cl.window.device, c.cl.dtype
+    seq = torch.cat([torch.as_tensor(prior)[:, None],
+                     torch.as_tensor(look)[:, None], torch.as_tensor(halves)],
+                    dim=1).to(dt).to(dev)                # [C, m+2, H]
+    ch, m = seq.shape[0], seq.shape[1] - 2
+    ms = cfg.stereo_mode == "ms"
+    if ms:
+        seq = codec.ms_forward(seq.reshape(ch, -1)).reshape(seq.shape)
+    frames = torch.cat([seq[:, :m], seq[:, 1:m + 1]], dim=-1)
+    flags = transient_flags(seq[:, 1:].reshape(ch, -1), cfg)   # t_{e..e+m}
+    if ms:
+        flags = flags[0::2] | flags[1::2]
+    t = torch.cat([torch.as_tensor(t_hist, device=dev), flags], dim=1)
+    states = stream_states(t, m)
+    return frames, (states.repeat_interleave(2, dim=0) if ms else states), t
+
+
+def encode_frames_bs_packed(prior, look, halves, t_hist, cfg: CodecConfig,
+                            c: BsConsts):
+    """Streaming block-switch core, fixed rate (tac/blockswitch.py:
+    _encode_frames_bs_packed and its M/S form): one frame per new half, the
+    lookahead as in ``ms_stream_prep`` → (words int32 [C, m, W32], nbits
+    int64 [C, m], t bool [L, m+3])."""
+    frames, states, t = ms_stream_prep(prior, look, halves, t_hist, cfg, c)
+    return (*encode_frames_bs(frames, states, cfg, c), t)
+
+
+def encode_frames_bs_vbr_packed(prior, look, halves, t_hist, res0,
+                                cfg: CodecConfig, c: BsConsts):
+    """Streaming Huffman × block-switch core (tac/blockswitch.py:
+    _encode_frames_bs_vbr_packed and its M/S form): as
+    ``encode_frames_bs_packed``, plus the carried fills res0 int32 [L] →
+    (words, nbits, t, res int32 [L, m])."""
+    frames, states, t = ms_stream_prep(prior, look, halves, t_hist, cfg, c)
+    words, nbits, ress = encode_frames_bs_vbr(frames, states, res0, cfg, c)
+    return words, nbits, t, ress
 
 
 def _bs_vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: BsConsts):
@@ -527,7 +614,14 @@ def _unpack_bs_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
     return _bs_code(state, ovs, alloc_code, sf, mant)
 
 
+def decode_frames_bs_vbr(words, cfg: CodecConfig, c: BsConsts):
+    """words: int32 [..., W32] combo payload rows → [..., N] windowed frame
+    audio, before the overlap-add."""
+    return _decode_frames(words, cfg, c, _unpack_bs_vbr_fields)
+
+
 def decode_clip_bs_vbr_packed(words, cfg: CodecConfig, t: int, device=None):
     """words: int32 [..., C, F, W32] combo payload rows → [..., C, T] audio,
     on `device` (CUDA unless named)."""
-    return _decode_rows(words, cfg, t, device, _unpack_bs_vbr_fields)
+    c = make_bs_consts(cfg, resolve_device(device))
+    return codec.output_signal(decode_frames_bs_vbr(words, cfg, c), cfg, t)

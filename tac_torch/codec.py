@@ -269,15 +269,11 @@ def input_signal(x, cfg: CodecConfig, dtype, dev) -> torch.Tensor:
     return ms_forward(xt) if cfg.stereo_mode == "ms" else xt
 
 
-def encode_clip_packed(x, cfg: CodecConfig, device=None):
-    """x: float [..., C, T] (array or tensor) → (words int32 [..., C, F, W32]
-    holding 32-bit patterns, nbits int64 [..., C, F]), on `device` (CUDA
-    unless named). Mid/side orders the rows frame-major ([..., F, C]) so
+def encode_frames_packed(frames, cfg: CodecConfig, c: CodecConsts):
+    """frames f[..., C, F, N] (of the butterflied signal under M/S) →
+    (words int32 [..., C, F, W32] holding 32-bit patterns, nbits int64
+    [..., C, F]). Mid/side orders the rows frame-major ([..., F, C]) so
     that each pair's rows are adjacent, and swaps the words back."""
-    dev = resolve_device(device)
-    c = make_consts(cfg, dev)
-    frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
-                             cfg.n_mdct_lines)
     ms = cfg.stereo_mode == "ms"
     if ms:
         frames = frames.transpose(-3, -2)          # [..., F, C, N]
@@ -289,6 +285,41 @@ def encode_clip_packed(x, cfg: CodecConfig, device=None):
         return (words.transpose(-3, -2).contiguous(),
                 nbits.transpose(-2, -1).contiguous())
     return words, nbits
+
+
+def encode_clip_packed(x, cfg: CodecConfig, device=None):
+    """x: float [..., C, T] (array or tensor) → (words int32 [..., C, F, W32]
+    holding 32-bit patterns, nbits int64 [..., C, F]), on `device` (CUDA
+    unless named)."""
+    dev = resolve_device(device)
+    c = make_consts(cfg, dev)
+    frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
+                             cfg.n_mdct_lines)
+    return encode_frames_packed(frames, cfg, c)
+
+
+# ------------------------------------------- frame-level streaming cores ---
+
+def frames_from_halves(prior, halves, cfg: CodecConfig, c: CodecConsts):
+    """prior [C, H] + halves [C, m, H] (L/R, arrays or tensors) → frames
+    f[C, m, N] on c's device in the codec's float type, frame j =
+    [h_{j-1} | h_j], butterflied per channel pair under M/S (per sample,
+    so it commutes with framing: the offline frames of the same samples)."""
+    dev = c.window.device
+    seq = torch.cat([torch.as_tensor(prior)[:, None], torch.as_tensor(halves)],
+                    dim=1).to(c.dtype).to(dev)     # [C, m+1, H]
+    if cfg.stereo_mode == "ms":
+        seq = ms_forward(seq.reshape(seq.shape[0], -1)).reshape(seq.shape)
+    return torch.cat([seq[:, :-1], seq[:, 1:]], dim=-1)
+
+
+def encode_frames_packed_halves(prior, halves, cfg: CodecConfig,
+                                c: CodecConsts):
+    """Streaming fixed-rate core (tac/codec.py:_encode_frames_packed_halves
+    and its M/S form): (prior [C, H], halves [C, m, H]) → (words int32
+    [C, m, W32], nbits int64 [C, m]), through the offline row path."""
+    return encode_frames_packed(frames_from_halves(prior, halves, cfg, c),
+                                cfg, c)
 
 
 def read_head(wf: torch.Tensor, cfg: CodecConfig, pre: tuple):
@@ -329,16 +360,48 @@ def _unpack_raw_fields(wf: torch.Tensor, cfg: CodecConfig,
                      mant=read_raw_mantissas(wf, mant_start, m_line))
 
 
+def decode_frames_packed(words, cfg: CodecConfig, c: CodecConsts):
+    """words: int32 [..., W32] payload rows (32-bit patterns) → [..., N]
+    windowed frame audio, before the overlap-add."""
+    w = torch.as_tensor(words).to(c.window.device)
+    code = _unpack_raw_fields(w.reshape(-1, w.shape[-1]), cfg, c)
+    return decode_frame(code, cfg, c).reshape(*w.shape[:-1], -1)
+
+
 def decode_clip_packed(words, cfg: CodecConfig, t: int, device=None):
     """words: int32 [..., C, F, W32] payload rows (32-bit patterns) →
     [..., C, T] audio, on `device` (CUDA unless named)."""
-    dev = resolve_device(device)
-    c = make_consts(cfg, dev)
-    w = torch.as_tensor(words).to(dev)
-    lead = w.shape[:-1]                            # [..., C, F]
-    code = _unpack_raw_fields(w.reshape(-1, w.shape[-1]), cfg, c)
-    y = decode_frame(code, cfg, c)                 # [K, N]
-    return output_signal(y.reshape(*lead, -1), cfg, t)
+    c = make_consts(cfg, resolve_device(device))
+    return output_signal(decode_frames_packed(words, cfg, c), cfg, t)
+
+
+def frame_decoder(cfg: CodecConfig):
+    """The family's frame decoder (words [..., W32], cfg, consts) →
+    [..., N], and the constants it takes on a device: (decoder,
+    make_consts)."""
+    if cfg.use_block_switch:
+        from tac_torch import blockswitch as bsw
+
+        return ((bsw.decode_frames_bs_vbr if cfg.use_huffman
+                 else bsw.decode_frames_bs), bsw.make_bs_consts)
+    return ((decode_frames_vbr if cfg.use_huffman else decode_frames_packed),
+            make_consts)
+
+
+def decode_frames_stream(words, tail, cfg: CodecConfig, c):
+    """Streaming decode core (tac/codec.py:_decode_frames_stream): words
+    int32 [C, m, W32] of m ≥ 1 frames and the carried second half of the
+    frame before them, tail f[C, H] (mid/side under M/S) → (out [C, m, H],
+    the finished samples of each frame's first half, L/R; the new tail
+    [C, H]). c is the family's constants (``frame_decoder``)."""
+    h = cfg.n_mdct_lines
+    y = frame_decoder(cfg)[0](words, cfg, c)       # [C, m, 2H]
+    firsts, seconds = y[..., :h], y[..., h:]
+    # the operand order of fb.overlap_add: first half + previous second
+    out = firsts + torch.cat([tail.to(y)[:, None], seconds[:, :-1]], dim=1)
+    if cfg.stereo_mode == "ms":                    # per sample: commutes
+        out = ms_inverse(out.reshape(out.shape[0], -1)).reshape(out.shape)
+    return out, seconds[:, -1]
 
 
 # ----------------------------------------------------------- VBR (huffman) --
@@ -468,6 +531,15 @@ def to_lanes(frames: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
     return frames.reshape(-1, f, 1, n)
 
 
+def n_lanes(lead: tuple, cfg: CodecConfig) -> int:
+    """How many reservoir lanes ``to_lanes`` makes of channels [..., C]: one
+    a channel, or one a pair under M/S."""
+    n = 1
+    for d in lead:
+        n *= d
+    return n // 2 if cfg.stereo_mode == "ms" else n
+
+
 def from_lanes(x: torch.Tensor, lead: tuple) -> torch.Tensor:
     """Per-row x [L, F, K, ...] → [*lead, F, ...], lead = [..., C]: the
     inverse of ``to_lanes``'s row order."""
@@ -520,22 +592,35 @@ def _vbr_pack_rows(lines, alloc_rows, tid_rows, cfg: CodecConfig,
 
 
 def _encode_vbr_lanes_to_words(frames, res0, cfg: CodecConfig, c: CodecConsts):
-    """Whole-clip VBR encode over independent reservoir lanes.
+    """VBR encode over independent reservoir lanes, each chain resumed from
+    its fill.
 
     frames f[L, F, K, N], res0 int32[L] → (words int32[L, F, K, W32], nbits
-    int64[L, F, K]). A lane of M/S pairs (K = 2) allocates over its frame's
-    K·B bands with base K·budget and cap reservoir_factor·K·budget, and
-    prices both rows under one tableId (tac/codec.py:
-    _encode_vbr_ms_to_words)."""
+    int64[L, F, K], res int32[L, F]: the fill after every frame). A lane of
+    M/S pairs (K = 2) allocates over its frame's K·B bands with base
+    K·budget and cap reservoir_factor·K·budget, and prices both rows under
+    one tableId (tac/codec.py:_encode_vbr_ms_to_words)."""
     lanes, f, k = frames.shape[:3]
     lines, smr, bits_huf = _vbr_phase1_lanes(frames, cfg, c)
-    allocs, tids, _, _ = _reservoir_chain(
+    allocs, tids, _, ress = _reservoir_chain(
         smr, bits_huf, c.n_lines.repeat(k), res0, k * c.budget,
         cfg.reservoir_factor * k * c.budget, cfg)
     del smr, bits_huf
     words, nbits = _vbr_pack_rows(lines, *rows_of_chain(allocs, tids, k),
                                   cfg, c)
-    return words.reshape(lanes, f, k, -1), nbits.reshape(lanes, f, k)
+    return (words.reshape(lanes, f, k, -1), nbits.reshape(lanes, f, k),
+            ress.transpose(0, 1))
+
+
+def encode_frames_vbr_packed(frames, res0, cfg: CodecConfig, c: CodecConsts):
+    """frames f[..., C, F, N] (of the butterflied signal under M/S), res0
+    int32 [L] → (words int32 [..., C, F, W32], nbits int64 [..., C, F], res
+    int32 [L, F]). The leading axes flatten into reservoir lanes: each
+    channel, or each M/S pair, its own chain (``to_lanes``)."""
+    lanes = to_lanes(frames, cfg)
+    words, nbits, ress = _encode_vbr_lanes_to_words(lanes, res0, cfg, c)
+    lead = frames.shape[:-2]                       # [..., C]
+    return from_lanes(words, lead), from_lanes(nbits, lead), ress
 
 
 def encode_clip_vbr_packed(x, cfg: CodecConfig, device=None):
@@ -548,11 +633,19 @@ def encode_clip_vbr_packed(x, cfg: CodecConfig, device=None):
     c = make_consts(cfg, dev)
     frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
                              cfg.n_mdct_lines)
-    lanes = to_lanes(frames, cfg)
-    res0 = torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev)
-    words, nbits = _encode_vbr_lanes_to_words(lanes, res0, cfg, c)
-    lead = frames.shape[:-2]                       # [..., C]
-    return from_lanes(words, lead), from_lanes(nbits, lead)
+    res0 = torch.zeros(n_lanes(frames.shape[:-2], cfg), dtype=torch.int32,
+                       device=dev)
+    return encode_frames_vbr_packed(frames, res0, cfg, c)[:2]
+
+
+def encode_frames_vbr_packed_halves(prior, halves, res0, cfg: CodecConfig,
+                                    c: CodecConsts):
+    """Streaming VBR core (tac/codec.py:_encode_frames_vbr_packed and its
+    M/S form): (prior [C, H], halves [C, m, H], the carried fills res0
+    int32 [L] of the C channels' or C/2 pairs' lanes) → (words int32
+    [C, m, W32], nbits int64 [C, m], res int32 [L, m])."""
+    return encode_frames_vbr_packed(frames_from_halves(prior, halves, cfg, c),
+                                    res0, cfg, c)
 
 
 def _vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
@@ -578,13 +671,16 @@ def _unpack_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
     return FrameCode(ovs=ovs, alloc_code=alloc_code, scale=sf, mant=mant)
 
 
+def decode_frames_vbr(words, cfg: CodecConfig, c: CodecConsts):
+    """words: int32 [..., W32] VBR payload rows → [..., N] windowed frame
+    audio, before the overlap-add."""
+    w = torch.as_tensor(words).to(c.window.device)
+    code = _unpack_vbr_fields(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
+    return decode_frame(code, cfg, c).reshape(*w.shape[:-1], -1)
+
+
 def decode_clip_vbr_packed(words, cfg: CodecConfig, t: int, device=None):
     """words: int32 [..., C, F, W32] VBR payload rows (32-bit patterns) →
     [..., C, T] audio, on `device` (CUDA unless named)."""
-    dev = resolve_device(device)
-    c = make_consts(cfg, dev)
-    w = torch.as_tensor(words).to(dev)
-    lead = w.shape[:-1]                            # [..., C, F]
-    code = _unpack_vbr_fields(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
-    y = decode_frame(code, cfg, c)                 # [K, N]
-    return output_signal(y.reshape(*lead, -1), cfg, t)
+    c = make_consts(cfg, resolve_device(device))
+    return output_signal(decode_frames_vbr(words, cfg, c), cfg, t)

@@ -11,6 +11,7 @@ every trained table set (tac_torch/huffman.py:HUFF_LEAVES per set).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -106,6 +107,18 @@ def _dtype(cfg: CodecConfig):
     return np.float64 if cfg.precision == "parity" else np.float32
 
 
+@functools.lru_cache(maxsize=4)
+def _dft_cos_sin(h: int) -> tuple:
+    """cos and sin of 2π·n·k/N, n < N = 2h, k < h: f64 [N, H], read-only
+    and shared between the configs of one transform size."""
+    n = 2 * h
+    nk = np.arange(n)[:, None] * (np.arange(h)[None, :] * (2 * np.pi / n))
+    out = np.cos(nk), np.sin(nk)
+    for a in out:
+        a.flags.writeable = False
+    return out
+
+
 def psy_host_arrays(cfg: CodecConfig) -> dict:
     """The psy model's constant arrays (PSY_LEAVES) for cfg's transform
     size, in NumPy (tac/psy.py:make_consts)."""
@@ -119,9 +132,9 @@ def psy_host_arrays(cfg: CodecConfig) -> dict:
         fft_cos = fft_sin = None     # parity keeps the f64 FFT
     else:
         # hann-fused DFT-by-matmul bases; |X|^2 needs bins 0..H-1 only
-        nk = np.arange(n)[:, None] * (np.arange(h)[None, :] * (2 * np.pi / n))
-        fft_cos = (hw[:, None] * np.cos(nk)).astype(dt)
-        fft_sin = (hw[:, None] * np.sin(nk)).astype(dt)
+        cos_nk, sin_nk = _dft_cos_sin(h)
+        fft_cos = (hw[:, None] * cos_nk).astype(dt)
+        fft_sin = (hw[:, None] * sin_nk).astype(dt)
     # each band's line run is contiguous and z increases with the line, so
     # a band's extreme-line Barks bound any unimodal spread over the band;
     # quiet is not unimodal, so its band minimum is taken exactly

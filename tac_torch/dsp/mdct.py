@@ -13,6 +13,8 @@ inverse scale 2.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -68,14 +70,26 @@ def imdct_fft(X: torch.Tensor, h: int) -> torch.Tensor:
     return 2.0 * (post_i * y).real.to(X.dtype)
 
 
-def mdct_basis(h: int, window: np.ndarray | None = None,
-               dtype=np.float32) -> np.ndarray:
-    """Forward basis A[n, k] with the analysis window fused in: X = x @ A."""
+@functools.lru_cache(maxsize=8)
+def _scaled_cos(h: int, inverse: bool) -> np.ndarray:
+    """The unwindowed f64 basis of size h, read-only and shared: forward
+    (2/N) cos(2π/N (n+n0)(k+1/2)) as [N, H], inverse 2 cos(...) as [H, N]."""
     n = 2 * h
     n0 = (h + 1) / 2.0
     nn = np.arange(n, dtype=np.float64)
     kk = np.arange(h, dtype=np.float64)
-    a = (2.0 / n) * np.cos(2.0 * np.pi / n * np.outer(nn + n0, kk + 0.5))
+    if inverse:
+        a = 2.0 * np.cos(2.0 * np.pi / n * np.outer(kk + 0.5, nn + n0))
+    else:
+        a = (2.0 / n) * np.cos(2.0 * np.pi / n * np.outer(nn + n0, kk + 0.5))
+    a.flags.writeable = False
+    return a
+
+
+def mdct_basis(h: int, window: np.ndarray | None = None,
+               dtype=np.float32) -> np.ndarray:
+    """Forward basis A[n, k] with the analysis window fused in: X = x @ A."""
+    a = _scaled_cos(h, False)
     if window is not None:
         a = window[:, None] * a
     return a.astype(dtype)
@@ -84,11 +98,7 @@ def mdct_basis(h: int, window: np.ndarray | None = None,
 def imdct_basis(h: int, window: np.ndarray | None = None,
                 dtype=np.float32) -> np.ndarray:
     """Inverse basis S[k, n] with the synthesis window fused in: y = X @ S."""
-    n = 2 * h
-    n0 = (h + 1) / 2.0
-    nn = np.arange(n, dtype=np.float64)
-    kk = np.arange(h, dtype=np.float64)
-    s = 2.0 * np.cos(2.0 * np.pi / n * np.outer(kk + 0.5, nn + n0))
+    s = _scaled_cos(h, True)
     if window is not None:
         s = s * window[None, :]
     return s.astype(dtype)

@@ -19,8 +19,9 @@ raw mantissas, in one launch of the CUDA kernel tac_torch/csrc/huffdec.cu
 (one thread per row, every set's compact peek LUT in shared memory).
 ``huffman_decode_rows_plain`` is the walk of one set in plain PyTorch
 through the packed peek LUT, the mirror of tac's _huffman_decode_scan;
-``huffman_decode_sets_plain`` runs it per set present and selects by tid,
-and is what the wrapper runs for tensors on the CPU. Both entries consume
+``huffman_decode_sets_plain`` is the same walk with each row under its own
+set, as the kernel runs it, and is what the wrapper runs for tensors on
+the CPU. Both entries consume
 ``mant_raw``: they write the Huffman rows into it and return it.
 """
 
@@ -37,57 +38,107 @@ _MASK32 = 0xFFFFFFFF
 
 
 def read_bits_at(wz: torch.Tensor, pos: torch.Tensor, width) -> torch.Tensor:
-    """Per-row bit read: wz int64 [K, W32] words (values in [0, 2^32)), pos
-    int64 [K] bit offsets, width int or int64 [K] (0 → 0) → int64 [K]. Word
-    indices past either end of the row clip to its first / last word."""
-    w32 = wz.shape[1]
-    word0 = pos >> 5
+    """Per-row bit read: wz int64 [K, W32 + 2] a row's words (values in
+    [0, 2^32)) between a copy of its first and of its last word
+    (``_padded_words``), pos int64 [K] bit offsets in the row, width int or
+    int64 [K] in [0, 32] (0 → 0) → int64 [K]. Word indices past either end
+    of the row clip to its first / last word."""
+    word0 = torch.clamp((pos >> 5) + 1, 0, wz.shape[1] - 2)[:, None]
     r = pos & 31
-    hi = torch.gather(wz, 1, torch.clamp(word0, 0, w32 - 1)[:, None])[:, 0]
-    lo = torch.gather(wz, 1, torch.clamp(word0 + 1, 0, w32 - 1)[:, None])[:, 0]
-    merged = ((hi << r) & _MASK32) | torch.where(r > 0, lo >> (32 - r), 0)
-    w = torch.as_tensor(width, dtype=torch.int64, device=wz.device)
-    return torch.where(w > 0, merged >> (32 - w), 0)
+    hi = torch.gather(wz, 1, word0)[:, 0]
+    lo = torch.gather(wz, 1, word0 + 1)[:, 0]
+    # hi, lo and merged are below 2^32, so a shift by 32 (r = 0, width 0)
+    # reads 0
+    merged = ((hi << r) & _MASK32) | (lo >> (32 - r))
+    return merged >> (32 - width)
+
+
+def _padded_words(words: torch.Tensor) -> torch.Tensor:
+    """int32 [K, W32] → int64 [K, W32 + 2], values in [0, 2^32): the words
+    between a copy of the first and of the last, which ``read_bits_at``
+    reads for indices clipped to either end."""
+    wz = words.to(torch.int64) & _MASK32
+    return torch.cat([wz[:, :1], wz, wz[:, -1:]], dim=1)
+
+
+def _flat_luts(huff: tuple):
+    """The sets' packed peek LUTs (length << 16 | symbol), flattened into
+    one int64 [E] with 2^lmax zero entries at its end (no codeword: length
+    0, symbol 0) → (the LUTs, int64 [S] where each set starts, where the
+    zero entries start)."""
+    paks = [hc.dec_pak.to(torch.int64).reshape(-1) for hc in huff]
+    dev = paks[0].device
+    top = max(hc.lmax for hc in huff)
+    starts = torch.tensor([0] + [p.shape[0] for p in paks], device=dev).cumsum(0)
+    pak = torch.cat(paks + [torch.zeros(1 << top, dtype=torch.int64, device=dev)])
+    return pak, starts[:-1], starts[-1]
+
+
+def _walk(words, mant_start, m_line, luts, sid, lmax) -> torch.Tensor:
+    """tac's _huffman_decode_scan, all K rows per step over the lines that
+    some row codes: luts from ``_flat_luts``, sid int64 [K] the set of each
+    row (an index into the LUTs), lmax int64 [K] its peek width. Returns
+    int32 [K, H]."""
+    pak, starts, zero = luts
+    out = torch.zeros(m_line.shape, dtype=torch.int32, device=words.device)
+    # a line of m = 0 reads no bit and gives 0: only the lines some row
+    # codes are walked
+    cols = torch.nonzero(m_line.ne(0).any(0)).flatten()
+    if cols.numel() == 0:
+        return out
+    wz = _padded_words(words)
+    m = m_line[:, cols].to(torch.int64)
+    codable = (m >= MIN_M) & (m <= MAX_M)
+    # per line: where its table starts in pak (the zero entries where no
+    # table covers m: no codeword is read), its escape symbol 2^m (-1:
+    # none) and its raw bits where no table covers m
+    base = torch.where(codable,
+                       starts[sid][:, None] + ((m - MIN_M) << lmax[:, None]),
+                       zero)
+    esc_sym = torch.where(codable, 1 << m, -1)
+    raw_m = torch.where(codable, 0, m)
+    pos = mant_start.to(torch.int64)
+    vals = []
+    for b, e, rm, mj in zip(base.T, esc_sym.T, raw_m.T, m.T):
+        code = pak[b + read_bits_at(wz, pos, lmax)]
+        sym, ln = code & 0xFFFF, code >> 16
+        esc = sym == e
+        raw_bits = torch.where(esc, mj, rm)
+        vals.append(torch.where(esc, 0, sym)
+                    | read_bits_at(wz, pos + ln, raw_bits))
+        pos = pos + ln + raw_bits
+    out[:, cols] = torch.stack(vals, dim=1).to(torch.int32)
+    return out
 
 
 def huffman_decode_rows_plain(words: torch.Tensor, mant_start: torch.Tensor,
                               m_line: torch.Tensor, hc: HuffConsts
                               ) -> torch.Tensor:
-    """Plain PyTorch K4: a loop over the H lines, all K rows per step.
+    """Plain PyTorch K4 under one set: a loop over the lines, all K rows
+    per step.
 
     words int32 [K, W32] (32-bit patterns); mant_start int [K]; m_line int
     [K, H] with values in [0, 16]. Returns int32 [K, H]."""
-    wz = words.to(torch.int64) & _MASK32
-    pak_t = hc.dec_pak.to(torch.int64)
-    pos = mant_start.to(torch.int64)
-    out = torch.empty(m_line.shape, dtype=torch.int32, device=words.device)
-    for j in range(m_line.shape[1]):
-        m = m_line[:, j].to(torch.int64)
-        codable = (m >= MIN_M) & (m <= MAX_M)
-        tab = torch.clamp(m - MIN_M, 0, N_TAB - 1)
-        pak = pak_t[tab, read_bits_at(wz, pos, hc.lmax)]
-        sym = pak & 0xFFFF
-        esc = codable & (sym == (1 << (tab + MIN_M)))
-        code_bits = torch.where(codable, pak >> 16, 0)
-        raw_bits = torch.where(codable, torch.where(esc, m, 0), m)
-        rawv = read_bits_at(wz, pos + code_bits, raw_bits)
-        out[:, j] = torch.where(codable & ~esc, sym, rawv)
-        pos = pos + code_bits + raw_bits
-    return out
+    k = words.shape[0]
+    sid = torch.zeros(k, dtype=torch.int64, device=words.device)
+    return _walk(words, mant_start, m_line, _flat_luts((hc,)), sid,
+                 torch.full_like(sid, hc.lmax))
 
 
 def huffman_decode_sets_plain(words: torch.Tensor, mant_start: torch.Tensor,
                               m_line: torch.Tensor, tid: torch.Tensor,
                               mant_raw: torch.Tensor, huff: tuple) -> torch.Tensor:
-    """Plain PyTorch K4 over a decode's rows: each set's walk over every
-    row, run for the sets some row carries (a host-side check), its rows
-    selected by tid and written into mant_raw in place, as the kernel
-    does. Returns mant_raw."""
-    for sid, hc in enumerate(huff, start=1):
-        here = tid == sid
-        if bool(here.any()):
-            dec = huffman_decode_rows_plain(words, mant_start, m_line, hc)
-            mant_raw[here] = dec[here]
+    """Plain PyTorch K4 over a decode's rows, as the kernel runs them: one
+    walk, each row under its own tableId's set, written into mant_raw in
+    place where tid = s ∈ [1, len(huff)] (a host-side check skips a decode
+    with no such row). Returns mant_raw."""
+    here = (tid >= 1) & (tid <= len(huff))
+    if not bool(here.any()):
+        return mant_raw
+    sid = torch.clamp(tid.to(torch.int64), 1, len(huff)) - 1
+    lmax = torch.tensor([hc.lmax for hc in huff], device=words.device)[sid]
+    dec = _walk(words, mant_start, m_line, _flat_luts(huff), sid, lmax)
+    mant_raw[here] = dec[here]
     return mant_raw
 
 

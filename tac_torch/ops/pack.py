@@ -4,8 +4,9 @@ Replaces tac/ops/pallas_pack.py:scatter_words_rows (_kernel_win). Each
 field f of a row contributes c0[f] to word word0[f] and its spill c1[f] to
 word word0[f]+1; contributions beyond the row's W32 words drop. Fields
 never share bits, so OR and integer addition agree. The CUDA source is
-tac_torch/csrc/scatter_words.cu; ``scatter_words_rows_plain`` is the
-compare-reduce of tac/ops/bitpack.py:82-87 in plain PyTorch.
+tac_torch/csrc/scatter_words.cu; ``scatter_words_rows_plain`` computes
+the sums of tac/ops/bitpack.py:82-87's compare-reduce by two scatter-adds
+in plain PyTorch.
 
 Words are 32-bit patterns held in int32 storage (PyTorch has no usable
 uint32 arithmetic on the CPU): the plain version widens to int64, masks
@@ -22,7 +23,6 @@ from tac_torch import _build
 
 MAX_WORDS = 3072       # the kernel's shared word buffer: 48 KB for 4 rows
 _MASK32 = 0xFFFFFFFF
-_PLAIN_TEMP_BYTES = 256 << 20   # bound on the plain version's [rows, NF, W32]
 
 
 def as_int32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -32,22 +32,16 @@ def as_int32_bits(x: torch.Tensor) -> torch.Tensor:
 
 def scatter_words_rows_plain(c0: torch.Tensor, c1: torch.Tensor,
                              word0: torch.Tensor, *, w32: int) -> torch.Tensor:
-    """Plain PyTorch K2: words[r, w] = Σ{c0 : word0 == w} + Σ{c1 : word0 == w-1},
-    chunked over rows so the [rows, NF, W32] temporary stays near 256 MB."""
-    r, nf = c0.shape
-    wi = torch.arange(w32, dtype=torch.int64, device=c0.device)
-    step = max(1, _PLAIN_TEMP_BYTES // (8 * max(nf, 1) * w32))
-    out = []
-    for s in range(0, r, step):
-        a0 = c0[s:s + step].to(torch.int64)[..., None] & _MASK32
-        a1 = c1[s:s + step].to(torch.int64)[..., None] & _MASK32
-        w0 = word0[s:s + step].to(torch.int64)[..., None]
-        words = (torch.where(w0 == wi, a0, 0).sum(1)
-                 + torch.where(w0 == wi - 1, a1, 0).sum(1)) & _MASK32
-        out.append(as_int32_bits(words))
-    if not out:
-        return torch.empty((0, w32), dtype=torch.int32, device=c0.device)
-    return torch.cat(out)
+    """Plain PyTorch K2: words[r, w] = Σ{c0 : word0 == w} + Σ{c1 : word0 == w-1}
+    over w in [0, W32): each contribution added into its word, those that
+    fall outside the row's words into a column that is then dropped."""
+    w0 = word0.to(torch.int64)
+    acc = torch.zeros((c0.shape[0], w32 + 1), dtype=torch.int64,
+                      device=c0.device)
+    for c, w in ((c0, w0), (c1, w0 + 1)):
+        acc.scatter_add_(1, torch.where((w >= 0) & (w < w32), w, w32),
+                         c.to(torch.int64) & _MASK32)
+    return as_int32_bits(acc[:, :w32] & _MASK32)
 
 
 def _lib():

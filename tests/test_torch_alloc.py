@@ -127,8 +127,8 @@ def test_plain_k1_joint_ms_bands(rng):
     budget, vs tac's allocate chain."""
     nl2 = np.concatenate([NL, NL])
     smr = rng.normal(10, 25, (16, len(nl2))).astype(np.float32)
-    want = np.asarray(jax.vmap(lambda s: jba.allocate(
-        s, jnp.asarray(nl2), 2 * 1282, "greedy", 16))(jnp.asarray(smr)))
+    want = np.asarray(jax.jit(jax.vmap(lambda s: jba.allocate(
+        s, jnp.asarray(nl2), 2 * 1282, "greedy", 16)))(jnp.asarray(smr)))
     np.testing.assert_array_equal(_port(_snap(smr), nl2, 2 * 1282), want)
 
 
@@ -137,7 +137,7 @@ def test_plain_k1_warm_start_matches_external(rng):
     externally warm-started Pallas kernel (XLA 2 × 32 bisection, interpret
     mode) finishes: the warm start is exact at any converged level."""
     smr_q = _snap(rng.normal(10, 25, (32, len(NL))))
-    a0, r0 = jax.vmap(lambda s: jba._warm_start(s, NL, 1282, 16))(
+    a0, r0 = jax.jit(jax.vmap(lambda s: jba._warm_start(s, NL, 1282, 16)))(
         jnp.asarray(smr_q))
     ext = jax_water_fill_rows(jnp.asarray(smr_q), jnp.asarray(NL), a0, r0,
                               max_mant=16, nb=len(NL), interpret=True)
@@ -151,7 +151,8 @@ def test_plain_k1_per_row_n_lines_and_max_mant(rng):
     budgets = torch.full((24,), 700, dtype=torch.int32)
     got = tk1.water_fill_rows(torch.from_numpy(smr_q), torch.from_numpy(nl),
                               budgets, max_mant=9).numpy()
-    want = np.asarray(jax.vmap(lambda s, n: jba.water_fill(s, n, 700, 9))(
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda s, n: jba.water_fill(s, n, 700, 9)))(
         jnp.asarray(smr_q), jnp.asarray(nl)))
     np.testing.assert_array_equal(got, want)
 
@@ -175,8 +176,8 @@ def test_plain_k1_fma_row():
 def test_allocate_f64_matches_tac(rng, mode):
     """bitalloc.allocate (the parity path, f64) equals tac's allocate."""
     smr = rng.normal(5, 30, (10, len(NL)))
-    want = np.asarray(jax.vmap(lambda s: jba.allocate(
-        s, jnp.asarray(NL), 1282, mode, 16))(jnp.asarray(smr)))
+    want = np.asarray(jax.jit(jax.vmap(lambda s: jba.allocate(
+        s, jnp.asarray(NL), 1282, mode, 16)))(jnp.asarray(smr)))
     got = tba.allocate(torch.from_numpy(smr), torch.from_numpy(NL), 1282,
                        mode).numpy()
     np.testing.assert_array_equal(got, want)

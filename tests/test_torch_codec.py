@@ -61,10 +61,15 @@ def test_decision_layers_byte_identical(clip44):
     c = jc.make_consts(cfg)
     frames = jm.frame_signal(jnp.asarray(clip44.T, c.dtype), cfg.n_mdct_lines)
     frames = frames.reshape(-1, frames.shape[-1])
-    lines, smr = jax.vmap(lambda f: jc.analyze_frame(f, cfg, c))(frames)
-    code = jax.vmap(lambda l, s: jc.quantize_lines(l, s, cfg, c))(lines, smr)
+    # tac's layers jitted, as its encode runs them (eager vmaps dispatch op
+    # by op: four times the time for the same integers)
+    lines, smr = jax.jit(jax.vmap(lambda f: jc.analyze_frame(f, cfg, c)))(
+        frames)
+    code = jax.jit(jax.vmap(lambda l, s: jc.quantize_lines(l, s, cfg, c)))(
+        lines, smr)
     cap = jc.payload_capacity_bits(cfg, c)
-    want_w, want_n = jbp.pack_rows(*jc.payload_fields(code, cfg, c), cap)
+    want_w, want_n = jax.jit(lambda code: jbp.pack_rows(
+        *jc.payload_fields(code, cfg, c), cap))(code)
 
     tcfg = TPRESETS["stereo44-128"]
     tcons = tc.make_consts(tcfg, CPU)

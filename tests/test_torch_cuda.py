@@ -567,3 +567,145 @@ def test_ms_round_trip_runs_its_kernels(dev, preset):
         return 10 * np.log10(np.mean(a ** 2) / np.mean((a - b) ** 2))
 
     assert abs(snr(x, y) - snr(x, y_cpu)) < 0.1
+
+
+# ------------------------------------------------ streaming, seek, fuzz ---
+
+@pytest.mark.parametrize("name", list(GOLDEN_CASES))
+def test_stream_parity_on_card_matches_goldens(dev, name):
+    """The golden clips streamed in parity on the card, in seeded random
+    pushes of 1-699 samples, hash to goldens/streams.json, as offline."""
+    import hashlib
+    import json
+    import os
+    import sys
+
+    from tac_torch.streaming import StreamEncoder
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(repo, "tools"))
+    import golden
+
+    preset, change, clip = GOLDEN_CASES[name]
+    x, fs = golden.clips()[clip]
+    cfg = PRESETS[preset].replace(precision="parity", sample_rate=fs, **change)
+    enc = StreamEncoder(cfg, n_channels=x.shape[1], device=dev)
+    rng = np.random.default_rng(5)
+    parts, i = [enc.header(len(x))], 0
+    while i < len(x):
+        n = int(rng.integers(1, 700))
+        parts.append(enc.push(x[i:i + n]))
+        i += n
+    data = b"".join(parts) + enc.flush()
+    with open(os.path.join(repo, "goldens", "streams.json")) as f:
+        want = json.load(f)[name]
+    assert hashlib.sha256(data).hexdigest() == want["sha256"]
+
+
+@pytest.mark.parametrize("precision", ["fast", "parity"])
+def test_decode_range_on_card(dev, precision):
+    """decode_range on the card over tests/test_seek.py's ranges of a
+    vbr-ms-bs stream: exactly the full decode's samples in parity, within
+    2e-5 in fast precision; K4 launches."""
+    from tac_torch import api
+
+    x = _ms_clips(1)[0].T
+    cfg = PRESETS["vbr-ms-bs"].replace(precision=precision)
+    data = api.encode_array(x, cfg, device=dev)
+    full = api.decode_array(data, precision, device=dev)[0]
+    n, h = full.shape[0], cfg.n_mdct_lines
+    before = tk4.huffman_decode_sets.launches
+    for s0, s1 in [(0, n), (0, 1), (n - 1, n), (h, 3 * h), (h - 1, h + 1),
+                   (5 * h + 17, 7 * h - 3), (1234, 20000)]:
+        got = api.decode_range(data, s0, s1, precision, device=dev)[0]
+        assert got.shape == (s1 - s0, 2)
+        if precision == "parity":
+            assert np.array_equal(got, full[s0:s1]), (s0, s1)
+        else:
+            np.testing.assert_allclose(got, full[s0:s1], atol=2e-5)
+    assert tk4.huffman_decode_sets.launches > before
+
+
+def test_fuzz_on_card_keeps_the_context(dev):
+    """Mutated VBR × block-switch streams (bit flips, truncations, length
+    prefixes) through decode_array, decode_range and StreamDecoder.push on
+    the card: a typed error or finite audio, and the CUDA context alive
+    (a synchronize) after every case."""
+    from tac_torch import api
+    from tac_torch.bitstream import CorruptStreamError, read_header
+    from tac_torch.streaming import StreamDecoder
+
+    x = _strike_clip(0.3)
+    data = api.encode_array(x, PRESETS["vbr-bs"].replace(
+        n_mdct_lines=256, n_mdct_lines_short=64), device=dev)
+    off = read_header(data)[1]
+    rng = np.random.default_rng(13)
+    prefixes, pos = [], off
+    while pos + 2 <= len(data):
+        prefixes.append(pos)
+        pos += 2 + (data[pos] | (data[pos + 1] << 8))
+    mutants = []
+    for _ in range(12):
+        buf = bytearray(data)
+        for b in rng.integers(off * 8, len(data) * 8, rng.integers(1, 17)):
+            buf[b // 8] ^= 1 << (b % 8)
+        mutants.append(bytes(buf))
+    mutants += [data[:int(rng.integers(off, len(data)))] for _ in range(4)]
+    for _ in range(4):
+        buf = bytearray(data)
+        p = prefixes[int(rng.integers(0, len(prefixes)))]
+        buf[p], buf[p + 1] = int(rng.integers(0, 256)), int(rng.integers(0, 256))
+        mutants.append(bytes(buf))
+    for m in mutants:
+        for call in (lambda: api.decode_array(m, "fast", device=dev)[0],
+                     lambda: api.decode_range(m, 100, 5000, device=dev)[0],
+                     lambda: StreamDecoder.from_header(m, device=dev)[0]
+                     .push(m[off:])):
+            try:
+                y = call()
+                assert np.all(np.isfinite(y))
+            except (CorruptStreamError, ValueError):
+                pass
+            torch.cuda.synchronize()
+
+
+def test_fast_stream_mid_push_kernels_equal_plain(dev, monkeypatch):
+    """Fast streams on the card: K1's inputs from pushes in the middle of a
+    streaming-ll stream and K3's from pushes in the middle of a vbr-bs
+    stream (resumed from a carried fill above 0) give the kernel's plain
+    version's integers."""
+    from tac_torch.ops import vbr_scan
+    from tac_torch.streaming import StreamEncoder
+
+    log = {"k1": [], "k3": []}
+    k1_kernel, k3_kernel = tc.water_fill_rows, tc.vbr_reservoir_scan
+
+    def rec_k1(*a, **kw):
+        log["k1"].append((a, kw))
+        return k1_kernel(*a, **kw)
+
+    def rec_k3(*a, **kw):
+        log["k3"].append((a, kw))
+        return k3_kernel(*a, **kw)
+
+    x = _strike_clip(1.0)
+    for preset, hop in (("streaming-ll", 256), ("vbr-bs", 1024)):
+        cfg = PRESETS[preset]
+        xin = x[:, 0] if cfg.n_channels == 1 else x
+        enc = StreamEncoder(cfg, n_channels=cfg.n_channels, device=dev)
+        for i in range(-(-len(xin) // hop)):
+            if i == 20:
+                monkeypatch.setattr(tc, "water_fill_rows", rec_k1)
+                monkeypatch.setattr(tc, "vbr_reservoir_scan", rec_k3)
+            enc.push(xin[i * hop:(i + 1) * hop])
+            if i == 24:
+                monkeypatch.undo()
+    assert log["k1"] and log["k3"]
+    assert max(int(a[3].max()) for a, _ in log["k3"]) > 0
+    for a, kw in log["k1"]:
+        assert torch.equal(tk1.water_fill_rows(*a, **kw),
+                           tk1.water_fill_rows_plain(*a, **kw))
+    for a, kw in log["k3"]:
+        for g, w in zip(vbr_scan.vbr_reservoir_scan(*a, **kw),
+                        vbr_scan.vbr_reservoir_scan_plain(*a, **kw)):
+            assert torch.equal(g, w)

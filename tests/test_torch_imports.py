@@ -49,12 +49,21 @@ def test_port_imports_and_encodes_with_jax_and_tac_blocked():
         "import tac_torch, tac_torch.codec, tac_torch.ops.alloc, "
         "tac_torch.ops.pack, tac_torch.ops.vbr_scan, tac_torch.ops.huffdec, "
         "tac_torch.ops.mdct_fused, tac_torch.blockswitch, tac_torch.filterbank, "
-        "tac_torch.huffman, tac_torch._build\n"
+        "tac_torch.huffman, tac_torch._build, tac_torch.streaming\n"
         "for preset in ('stereo44-128', 'vbr-huffman', 'vbr-bs', 'vbr-ms-bs'):\n"
         "    data = tac_torch.encode_array(np.zeros((3000, 2)), "
         "tac_torch.PRESETS[preset], device='cpu')\n"
         "    y, fs = tac_torch.decode_array(data, device='cpu')\n"
         "    assert y.shape == (3000, 2) and fs == 44100\n"
+        "enc = tac_torch.StreamEncoder(tac_torch.PRESETS['vbr-ms-bs'], "
+        "device='cpu')\n"
+        "data = enc.header(3000) + enc.push(np.zeros((3000, 2))) + enc.flush()\n"
+        "assert data == tac_torch.encode_array(np.zeros((3000, 2)), "
+        "tac_torch.PRESETS['vbr-ms-bs'], device='cpu')\n"
+        "dec, off = tac_torch.StreamDecoder.from_header(data, device='cpu')\n"
+        "assert dec.push(data[off:]).shape == (3000, 2)\n"
+        "assert tac_torch.decode_range(data, 5, 50, device='cpu')[0].shape "
+        "== (45, 2)\n"
         "assert not any(m.split('.')[0] in ('jax', 'tac') for m in sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

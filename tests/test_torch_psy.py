@@ -87,7 +87,8 @@ def test_band_smrs_fast_match_tac(rng):
     assert tcons.psy.band_thresh and jcons.psy.band_thresh
     fr = _frames(rng, 44100, 2048, 24).astype(np.float32)
     lines = fr @ np.asarray(jcons.fwd_basis)
-    want = np.asarray(jax.vmap(lambda f, l: jp.calc_smrs(f, l, jcons.psy))(
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda f, l: jp.calc_smrs(f, l, jcons.psy)))(
         jnp.asarray(fr), jnp.asarray(lines)))
     got = tp.calc_smrs(torch.from_numpy(fr), torch.from_numpy(lines),
                        tcons.psy).numpy()
@@ -103,16 +104,17 @@ def test_line_smrs_parity_match_tac(rng):
         precision="parity"), _tac_arrays(jcons), "cpu")
     assert not tcons.psy.band_thresh and cfg_t.precision == "parity"
     fr = _frames(rng, 44100, 2048, 8)
-    lines = np.asarray(jax.vmap(lambda f: jc.analyze_frame(f, cfg, jcons)[0])(
-        jnp.asarray(fr)))
-    want = np.asarray(jax.vmap(lambda f, l: jp.calc_smrs(f, l, jcons.psy))(
+    lines = np.asarray(jax.jit(jax.vmap(
+        lambda f: jc.analyze_frame(f, cfg, jcons)[0]))(jnp.asarray(fr)))
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda f, l: jp.calc_smrs(f, l, jcons.psy)))(
         jnp.asarray(fr), jnp.asarray(lines)))
     got = tp.calc_smrs(torch.from_numpy(fr), torch.from_numpy(lines),
                        tcons.psy).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
     thr_t = tp.masked_threshold(torch.from_numpy(fr), tcons.psy).numpy()
-    thr_j = np.asarray(jax.vmap(lambda f: jp.masked_threshold(f, jcons.psy))(
-        jnp.asarray(fr)))
+    thr_j = np.asarray(jax.jit(jax.vmap(
+        lambda f: jp.masked_threshold(f, jcons.psy)))(jnp.asarray(fr)))
     np.testing.assert_allclose(thr_t, thr_j, rtol=1e-9, atol=0)
 
 

@@ -116,8 +116,9 @@ def test_vbr_decision_layers_identical(clip44):
     cap = jc.payload_capacity_bits(jcfg, jcons)
     code = jax.jit(jax.vmap(lambda l_, a_: jc.quantize_given_alloc(
         l_, a_, jcfg, jcons)))(lines, jnp.asarray(alloc_rows))
-    want_w, want_n = jbp.pack_rows(
-        *jc.payload_fields_vbr(code, jnp.asarray(tid_rows), jcfg, jcons), cap)
+    want_w, want_n = jax.jit(lambda code, tid: jbp.pack_rows(
+        *jc.payload_fields_vbr(code, tid, jcfg, jcons), cap))(
+        code, jnp.asarray(tid_rows))
     tcode = tc.quantize_given_alloc(lt, torch.tensor(alloc_rows), tcfg, tcons)
     got_w, got_n = tbp.pack_rows(
         *tc.payload_fields_vbr(tcode, torch.tensor(tid_rows), tcfg, tcons), cap)
