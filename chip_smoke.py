@@ -79,11 +79,23 @@ Phases, each of which fails the run (non-zero exit) on error:
      tests/test_seek.py's ranges (fast within 2e-5; vbr-ms-bs in parity
      too, exact); and
      tests/test_fuzz.py's mutations of four families through every decode
-     surface on the card, the context alive after each case.
+     surface on the card, the context alive after each case;
+ 13. the corpus path (``phase_corpus``): the port's CLI, `corpus` and
+     `corpus-decode` as a user calls them (default device and batch), on
+     64 seeded WAVs of 5-15 s (56 stereo 44.1 kHz, 8 mono 16 kHz) plus one
+     file that is not RIFF, for PRESETS["corpus"] and ["vbr-huffman"]:
+     rates, the share of the wall in file I/O against the device batches,
+     the launches in each window, a resume that encodes nothing, a planted
+     truncated .pac that decodes as corrupt, no per-clip fallback, decoded
+     WAVs within one LSB of decode_array, decode SNR within 0.1 dB of solo
+     encodes, parity corpus bytes equal to solo encodes; pure tones
+     through the corpus and solo, printed and not gated; then the corpus
+     family's encode rate at batch 8 / 16 / 32 / 64.
 It prints "profile", "main_path", "profile_vbr", "vbr_path", "mdct_path",
 "profile_bs", "bs_path", "profile_bs_vbr", "bs_vbr_path", one "ms_path" per
 M/S family, two "ms_vs_lr", "parity_on_card", "stream_parity_on_card",
-"stream_path", "seek_path", "fuzz_on_card" and "kernels" JSON lines, and
+"stream_path", "seek_path", "fuzz_on_card", two "corpus_path",
+"corpus_pure_tones", "corpus_ladder" and "kernels" JSON lines, and
 last {"ok": true, "device": {...}}. Without CUDA, or without the tac_torch
 package beside it, it exits non-zero and prints no result.
 """
@@ -1457,6 +1469,388 @@ def phase_stream(card: str) -> dict:
             for name in counters}
 
 
+CORPUS_STEREO, CORPUS_MONO = 56, 8
+LADDER = (8, 16, 32, 64)
+
+
+class Spans:
+    """Wall-clock intervals of calls to wrapped functions (any thread);
+    ``wall()`` is the length of their union: the time the job spent in
+    at least one such call."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.spans = []
+        self.calls = 0
+
+    def wrap(self, fn):
+        def timed_call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with self.lock:
+                    self.spans.append((t0, time.perf_counter()))
+                    self.calls += 1
+        return timed_call
+
+    def wall(self) -> float:
+        total, end = 0.0, -np.inf
+        for a, b in sorted(self.spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+
+def corpus_material(root: str) -> tuple:
+    """The corpus cell's files in root: 56 stereo 44.1 kHz clips of
+    make_clips material and 8 mono 16 kHz ones (a second (channels, rate)
+    group: make_clips' second channel, the tones with a little noise), each
+    cut to a seeded length of 5-15 s, written by the port's write_wav; one
+    file that is not RIFF. Returns (wav paths in job order, the non-RIFF
+    path, audio per path)."""
+    import os
+
+    from tac_torch.io.wav import write_wav
+
+    rng = np.random.default_rng(88)
+    stereo = make_clips(CORPUS_STEREO, 15.0, 44100)
+    mono = make_clips(CORPUS_MONO, 15.0, 16000)[:, 1]
+    paths, audio = [], {}
+    for i in range(CORPUS_STEREO + CORPUS_MONO):
+        fs = 44100 if i < CORPUS_STEREO else 16000
+        n = int(fs * rng.uniform(5.0, 15.0))
+        x = stereo[i, :, :n].T if i < CORPUS_STEREO \
+            else mono[i - CORPUS_STEREO, :n]
+        p = os.path.join(root, f"clip{i:02d}.wav")
+        write_wav(p, x, fs)
+        paths.append(p)
+        audio[p] = (x, fs)
+    bad = os.path.join(root, "not_riff.wav")
+    with open(bad, "wb") as f:
+        f.write(b"this is not a RIFF file" * 10)
+    # job order mixes the two groups inside batches
+    order = list(rng.permutation(len(paths)))
+    return [paths[i] for i in order] + [bad], bad, audio
+
+
+def phase_corpus(card: str) -> dict:
+    """Phase 13: the corpus path, through the port's CLI as a user calls it
+    (``tac_torch.cli.main``, default device and batch), on 64 WAVs of
+    5-15 s in two (channels, rate) groups and one file that is not RIFF,
+    for PRESETS["corpus"] (fixed rate: K1 + K2) and PRESETS["vbr-huffman"]
+    (K3 + K2 on encode, K4 on decode).
+
+    Per family (one ``corpus_path`` line): `corpus` and `corpus-decode`
+    audio-s per wall-s, the share of each wall in WAV / PAC reads and writes
+    against the device batches, the launches of K1-K5 inside each window,
+    a resume of the same job (it must encode nothing) and its wall,
+    `corpus-decode` with a truncated .pac planted (it must be corrupt).
+    Checks: every clip but the planted files ok; no per-clip fallback in
+    either direction; the family's kernels launched; the decoded WAVs
+    within one 16-bit LSB of decode_array of the same file; each clip's
+    decode SNR within 0.1 dB of its solo encode's; in parity precision, 4
+    clips x 2 s through the corpus byte-identical to solo encode_array
+    (fast: the identical count is printed, not gated: cuBLAS tiles each
+    batch shape differently). Then ``corpus_pure_tones``: 8 pure-tone mono
+    clips through the corpus and solo in both families, their decode SNRs
+    printed and not gated. Then ``corpus_ladder``: the corpus family's
+    encode rate at batch 8 / 16 / 32 / 64 (the better of two passes).
+    Returns per kernel its launches
+    on the corpus path, by family and window."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    from tac_torch import api, cli, corpus, tuning
+    from tac_torch.bitstream import read_header
+    from tac_torch.config import PRESETS
+    from tac_torch.io.wav import read_wav, write_wav
+    from tac_torch.ops import mdct_fused as k5
+
+    counters = {**kernel_counters(), "mdct_fused": k5.mdct_frames_fused}
+    t_phase = time.perf_counter()
+
+    def zero():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def statuses(manifest: str) -> dict:
+        return {k: v["status"] for k, v in
+                corpus._load_manifest(manifest).items()}
+
+    @contextlib.contextmanager
+    def instrumented():
+        """Wrap the corpus jobs' I/O, device batches and per-clip
+        fallbacks with wall-clock spans for the length of the block."""
+        spans = {k: Spans() for k in ("read", "write", "batch", "fallback")}
+        saved = [(corpus.CorpusTranscoder, "_safe_read"),
+                 (corpus.CorpusDecoder, "_safe_read_bytes"),
+                 (corpus, "write_wav"),
+                 (corpus.CorpusTranscoder, "_encode_batch"),
+                 (corpus.CorpusDecoder, "_decode_batch"),
+                 (corpus.CorpusTranscoder, "_encode_one"),
+                 (corpus.CorpusDecoder, "_decode_one")]
+        old = [obj.__dict__[name] for obj, name in saved]
+        kinds = ["read", "read", "write", "batch", "batch", "fallback",
+                 "fallback"]
+        for (obj, name), fn, kind in zip(saved, old, kinds):
+            wrapped = spans[kind].wrap(fn.__func__ if isinstance(
+                fn, staticmethod) else fn)
+            setattr(obj, name, staticmethod(wrapped)
+                    if isinstance(fn, staticmethod) else wrapped)
+        try:
+            yield spans
+        finally:
+            for (obj, name), fn in zip(saved, old):
+                setattr(obj, name, fn)
+
+    def cli_run(argv) -> tuple:
+        """(stats, wall s, launches, spans) of one CLI call, the counters
+        zeroed just before and read just after."""
+        out = io.StringIO()
+        with instrumented() as spans, contextlib.redirect_stdout(out):
+            zero()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read()
+        check(rc == 0, f"corpus CLI {argv[0]} exited {rc}")
+        return json.loads(out.getvalue().strip().splitlines()[-1]), wall, \
+            launches, spans
+
+    batch = tuning.CORPUS_BATCH
+    result, launches_by_family = {}, {}
+    with tempfile.TemporaryDirectory() as root, torch.no_grad():
+        wavs, bad, audio = corpus_material(root)
+        good = [p for p in wavs if p != bad]
+        audio_s = sum(len(x) / fs for x, fs in audio.values())
+        print(f"corpus: {len(good)} clips ({CORPUS_STEREO} stereo 44.1 kHz, "
+              f"{CORPUS_MONO} mono 16 kHz), {audio_s:.1f} s of audio, "
+              f"batch {batch}")
+        # warm each family once outside the timed windows (cuBLAS handles,
+        # the kernels' first loads), on one clip of each group
+        pair = [next(p for p in good if audio[p][1] == fs)
+                for fs in (44100, 16000)]
+        for fam in ("corpus", "vbr-huffman"):
+            warm = os.path.join(root, f"warm_{fam}")
+            cli_run(["corpus", *pair, "-o", warm, "--preset", fam])
+            cli_run(["corpus-decode", *(os.path.join(warm, os.path.basename(
+                p)[:-4] + ".pac") for p in pair), "-o", warm + "_dec"])
+        for fam in ("corpus", "vbr-huffman"):
+            enc_dir = os.path.join(root, f"enc_{fam}")
+            dec_dir = os.path.join(root, f"dec_{fam}")
+            st, enc_wall, enc_l, enc_sp = cli_run(
+                ["corpus", *wavs, "-o", enc_dir, "--preset", fam])
+            recs = statuses(os.path.join(enc_dir, "manifest.jsonl"))
+            check(all(recs[p] == "ok" for p in good)
+                  and recs[bad] == "read_error" and st["ok"] == len(good),
+                  f"corpus {fam}: statuses {st}")
+            check(enc_sp["fallback"].calls == 0,
+                  f"corpus {fam}: a batch took the per-clip fallback")
+            # the resume: the same job again encodes nothing
+            st_r, resume_wall, _, res_sp = cli_run(
+                ["corpus", *wavs, "-o", enc_dir, "--preset", fam])
+            check(res_sp["batch"].calls == 0 and st_r["ok"] == len(good),
+                  f"corpus {fam}: the resume encoded clips ({st_r})")
+            pacs = [os.path.join(enc_dir, os.path.basename(p)[:-4] + ".pac")
+                    for p in good]
+            planted = os.path.join(root, f"planted_{fam}.pac")
+            with open(pacs[0], "rb") as f:
+                blob = f.read()
+            with open(planted, "wb") as f:
+                f.write(blob[:len(blob) // 2])
+            st_d, dec_wall, dec_l, dec_sp = cli_run(
+                ["corpus-decode", *pacs, planted, "-o", dec_dir])
+            drecs = corpus._load_manifest(os.path.join(
+                dec_dir, "decode_manifest.jsonl"))
+            check(all(drecs[p]["status"] == "ok" for p in pacs)
+                  and drecs[planted]["status"] == "corrupt"
+                  and st_d["ok"] == len(pacs),
+                  f"corpus-decode {fam}: statuses {st_d}")
+            check(dec_sp["fallback"].calls == 0,
+                  f"corpus-decode {fam}: a batch took the per-stream fallback")
+            need = (("water_fill", "scatter_words"), ()) if fam == "corpus" \
+                else (("scatter_words", "vbr_scan"), ("huffdec",))
+            check(all(enc_l[k] > 0 for k in need[0])
+                  and all(dec_l[k] > 0 for k in need[1])
+                  and enc_l["mdct_fused"] == dec_l["mdct_fused"] == 0,
+                  f"corpus {fam}: launches encode {enc_l} decode {dec_l}")
+            launches_by_family[fam] = {"encode": enc_l, "decode": dec_l}
+
+            # each clip: its decoded WAV within one LSB of decode_array of
+            # the same file; its decode SNR within 0.1 dB of a solo encode's
+            cfg = PRESETS[fam]
+            lsb, same, diffs = 0.0, 0, {}
+            for p, pac in zip(good, pacs):
+                x, fs = audio[p]
+                x = x[:, None] if x.ndim == 1 else x
+                x16 = np.clip(np.round(x * 32768.0), -32768, 32767) / 32768.0
+                with open(pac, "rb") as f:
+                    data = f.read()
+                y = api.decode_array(data, "fast")[0]
+                wav = read_wav(os.path.join(dec_dir, os.path.basename(
+                    pac)[:-4] + ".wav"))[0]
+                ref = np.clip(np.round(y * 32768.0), -32768, 32767) / 32768.0
+                check(wav.shape == ref.shape and bool(np.isfinite(y).all()),
+                      f"corpus {fam} {p}: decoded shape")
+                lsb = max(lsb, float(np.abs(wav - ref).max()) * 32768.0)
+                gcfg = cfg.replace(sample_rate=fs, n_channels=x.shape[1])
+                solo = api.encode_array(x16, gcfg)
+                same += solo == data
+                ys = api.decode_array(solo, "fast")[0]
+                diffs[os.path.basename(p)] = (fs, snr_db(x16, y),
+                                              snr_db(x16, ys))
+            worst = max(diffs, key=lambda k: abs(diffs[k][1] - diffs[k][2]))
+            d_snr = abs(diffs[worst][1] - diffs[worst][2])
+
+            # parity: 4 clips x 2 s (two of each group) through the corpus
+            # == solo, byte for byte
+            pcfg = cfg.replace(precision="parity")
+            two = [os.path.join(root, f"par_{fam}_{i}.wav") for i in range(4)]
+            picks = ([p for p in good if audio[p][1] == 44100][:2]
+                     + [p for p in good if audio[p][1] == 16000][:2])
+            for q, p in zip(two, picks):
+                x, fs = audio[p]
+                write_wav(q, x[:2 * fs], fs)
+            par_dir = os.path.join(root, f"par_{fam}")
+            corpus.CorpusTranscoder(pcfg, par_dir, batch_size=4).run(
+                two, log=lambda *a: None)
+            par_same = 0
+            for q in two:
+                x, fs = read_wav(q)
+                with open(os.path.join(par_dir, os.path.basename(q)[:-4]
+                                       + ".pac"), "rb") as f:
+                    par_same += f.read() == api.encode_array(
+                        x, pcfg.replace(sample_rate=fs,
+                                        n_channels=x.shape[1]))
+            enc_b, dec_b = enc_sp["batch"].wall(), dec_sp["batch"].wall()
+            result[fam] = {
+                "config": f"{fam} fast", "batch": batch,
+                "clips_ok": st["ok"], "clips_failed": st["failed"],
+                "audio_s": audio_s,
+                "encode_audio_s_per_wall_s": audio_s / enc_wall,
+                "decode_audio_s_per_wall_s": audio_s / dec_wall,
+                "encode_wall_s": enc_wall, "decode_wall_s": dec_wall,
+                "encode_share_wav_reads": enc_sp["read"].wall() / enc_wall,
+                "encode_share_device_batches": enc_b / enc_wall,
+                "decode_share_pac_reads": dec_sp["read"].wall() / dec_wall,
+                "decode_share_wav_writes": dec_sp["write"].wall() / dec_wall,
+                "decode_share_device_batches": dec_b / dec_wall,
+                "batches": [enc_sp["batch"].calls, dec_sp["batch"].calls],
+                "fallbacks": [enc_sp["fallback"].calls,
+                              dec_sp["fallback"].calls],
+                "launches_encode": enc_l, "launches_decode": dec_l,
+                "resume_wall_s": resume_wall, "resume_batches":
+                    res_sp["batch"].calls,
+                "planted": drecs[planted]["status"],
+                "planted_error": drecs[planted].get("error"),
+                "max_lsb_vs_decode_array": lsb,
+                "max_snr_diff_vs_solo_db": d_snr,
+                "worst_clip": [worst, *diffs[worst]],
+                "snr_diff_vs_solo_db_by_rate": {
+                    str(r): max(abs(a - b) for f_, a, b in diffs.values()
+                                if f_ == r) for r in (44100, 16000)},
+                "clips_over_0.1_db": sorted(
+                    k for k, (_, a, b) in diffs.items() if abs(a - b) >= 0.1),
+                "fast_bytes_identical_to_solo": int(same),
+                "parity_bytes_identical_to_solo": par_same, "card": card}
+            print(json.dumps({"corpus_path": result[fam]}))
+            # gated after the line is printed, so a failing run still shows
+            # every number of the family
+            check(lsb <= 1.001, f"corpus {fam}: decoded WAV {lsb} LSB from "
+                  "decode_array")
+            check(d_snr < 0.1, f"corpus {fam}: decode SNR {d_snr} dB from "
+                  f"the solo encode's ({worst})")
+            check(par_same == 4, f"corpus {fam}: parity {par_same} / 4 .pac "
+                  "files equal their solo encodes")
+
+        # pure tones (make_clips' first channel) at the mono group's rate
+        # and lengths, through the corpus and solo: printed, not gated. In
+        # fast precision a batched and a solo encode may fall on either
+        # side of a 1/16-dB grid tie (cuBLAS tiles each batch shape
+        # differently), and on such tones that moved a VBR decode SNR by
+        # 0.727 dB at 73-74 dB (ROADMAP Queue 3), past SPEC section 10's
+        # 0.1 dB; the line shows whether a fix or a regression changes it
+        tone_src = make_clips(CORPUS_MONO, 15.0, 16000)[:, 0]
+        tone_wavs = []
+        for i, p in enumerate(sorted(p for p in good
+                                     if audio[p][1] == 16000)):
+            q = os.path.join(root, f"tone{i:02d}.wav")
+            write_wav(q, tone_src[i, :len(audio[p][0])], 16000)
+            tone_wavs.append(q)
+        tones = {}
+        for fam in ("corpus", "vbr-huffman"):
+            cfg = PRESETS[fam].replace(sample_rate=16000, n_channels=1)
+            out = os.path.join(root, f"tones_{fam}")
+            corpus.CorpusTranscoder(PRESETS[fam], out).run(
+                tone_wavs, log=lambda *a: None)
+            rows = []
+            for q in tone_wavs:
+                x = read_wav(q)[0]
+                with open(os.path.join(out, os.path.basename(q)[:-4]
+                                       + ".pac"), "rb") as f:
+                    data = f.read()
+                solo = api.encode_array(x, cfg)
+                rows.append((snr_db(x, api.decode_array(data, "fast")[0]),
+                             snr_db(x, api.decode_array(solo, "fast")[0]),
+                             data == solo))
+            tones[fam] = {
+                "max_snr_diff_vs_solo_db": max(abs(a - b)
+                                               for a, b, _ in rows),
+                "clips_over_0.1_db": sum(abs(a - b) >= 0.1
+                                         for a, b, _ in rows),
+                "snr_db_corpus_solo": [[a, b] for a, b, _ in rows],
+                "bytes_identical_to_solo": sum(s_ for _, _, s_ in rows)}
+        print(json.dumps({"corpus_pure_tones": {
+            "clips": len(tone_wavs), "rate": 16000, "gated": False,
+            "by_family": tones, "card": card}}))
+
+        # zero frames decode to silence through K4
+        cv = PRESETS["vbr-huffman"]
+        zeros = np.zeros((2, 2, 32, api.payload_words(cv)), np.int32)
+        before = counters["huffdec"].launches
+        y = corpus.parallel.decode_batch_packed(
+            zeros, cv, 31 * cv.n_mdct_lines, pcm16=True)
+        check(counters["huffdec"].launches == before + 1 and not y.any(),
+              "all-zero VBR rows did not decode to silence through K4")
+
+        # the batch ladder: the corpus family's encode rate by batch size,
+        # two passes in opposite orders, the better of each size's two
+        ladder = {b: {"audio_s_per_wall_s": 0.0} for b in LADDER}
+        for i, b in enumerate(LADDER + LADDER[::-1]):
+            _, wall, _, sp = cli_run(
+                ["corpus", *wavs, "-o", os.path.join(root, f"ladder{i}"),
+                 "--preset", "corpus", "--batch-size", str(b)])
+            if audio_s / wall > ladder[b]["audio_s_per_wall_s"]:
+                ladder[b] = {"audio_s_per_wall_s": audio_s / wall,
+                             "share_device_batches": sp["batch"].wall() / wall,
+                             "share_wav_reads": sp["read"].wall() / wall}
+        best = max(v["audio_s_per_wall_s"] for v in ladder.values())
+        knee = min(b for b, v in ladder.items()
+                   if v["audio_s_per_wall_s"] >= 0.9 * best)
+        print(json.dumps({"corpus_ladder": {
+            "config": "corpus fast", "by_batch": ladder, "knee": knee,
+            "rule": "the smallest batch within 10 % of the best rate",
+            "default": batch, "card": card}}))
+        print(f"corpus phase: {time.perf_counter() - t_phase:.1f} s")
+    return {name: {"launches_corpus_path": {
+        fam: {w: launches_by_family[fam][w][name] for w in ("encode",
+                                                            "decode")}
+        for fam in launches_by_family}} for name in counters}
+
+
 def main() -> int:
     import torch
 
@@ -1936,14 +2330,15 @@ def main() -> int:
                   card)
     phase_parity_on_card(card)
     st = phase_stream(card)
+    co = phase_corpus(card)
 
     def with_bs(entry: dict) -> dict:
-        """A kernel's entry plus what the block-switch, M/S and streaming
-        phases measured."""
+        """A kernel's entry plus what the block-switch, M/S, streaming and
+        corpus phases measured."""
         for extra in (dict(bs[entry["name"]]), dict(ms[entry["name"]]),
-                      dict(st[entry["name"]])):
+                      dict(st[entry["name"]]), dict(co[entry["name"]])):
             entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       extra.pop("max_abs_err"))
+                                       extra.pop("max_abs_err", 0))
             entry = {**entry, **extra}
         return entry
 
@@ -2002,7 +2397,8 @@ def main() -> int:
          "library_ms": None},
     )] + [{**k5_entry,
            "launches_stream_path": st["mdct_fused"]["launches_stream_path"],
-           "launches_seek_path": st["mdct_fused"]["launches_seek_path"]}]
+           "launches_seek_path": st["mdct_fused"]["launches_seek_path"],
+           "launches_corpus_path": co["mdct_fused"]["launches_corpus_path"]}]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from tac_torch import bands, codec, consts
+from tac_torch import bitstream as bs
 from tac_torch import bitalloc as ba
 from tac_torch import psy as psy_mod
 from tac_torch.codec import FrameCode
@@ -459,6 +460,71 @@ def decode_clip_bs_packed(words, cfg: CodecConfig, t: int, device=None):
     audio, on `device` (CUDA unless named)."""
     c = make_bs_consts(cfg, resolve_device(device))
     return codec.output_signal(decode_frames_bs(words, cfg, c), cfg, t)
+
+
+def encode_clip_bs(x, cfg: CodecConfig, device=None) -> BsFrameCode:
+    """x: float [..., C, T] → BsFrameCode with [..., C, F, ...] leaves on
+    `device` (CUDA unless named): tac/blockswitch.py:encode_clip_bs, L/R.
+    Each encoding gets its own allocation on its own SMRs and band widths,
+    as tac's; the state-selected one is what a stream carries (the stream
+    path allocates only that one, ``encode_frame_bs``)."""
+    dev = resolve_device(device)
+    c = make_bs_consts(cfg, dev)
+    xt = torch.as_tensor(x).to(dev).to(c.cl.dtype)
+    frames = fb.frame_signal(xt, cfg.n_mdct_lines)
+    states = window_states(transient_flags(xt, cfg), frames.shape[-2])
+
+    def both(fr, st):
+        lines_l, smr_l, lines_s, smr_s = analyze_frame_bs(fr, st, cfg, c)
+        long_, short = (codec.quantize_given_alloc(
+            lines, codec.allocate_rows(smr, cfg, cc), cfg, cc)
+            for lines, smr, cc in ((lines_l, smr_l, c.cl),
+                                   (lines_s, smr_s, c.cg)))
+        return BsFrameCode(st.to(torch.int32), long_, short)
+
+    parts = [both(fr, st) for fr, st in zip(
+        frames.reshape(-1, frames.shape[-1]).split(codec.ENC_CHUNK),
+        states.reshape(-1).split(codec.ENC_CHUNK))]
+    return codec._leaves(parts, frames.shape[:-1])
+
+
+def decode_clip_bs(bc: BsFrameCode, cfg: CodecConfig, t: int, device=None):
+    """BsFrameCode [..., C, F, ...] → [..., C, T] audio on `device` (CUDA
+    unless named): tac/blockswitch.py:decode_clip_bs."""
+    c = make_bs_consts(cfg, resolve_device(device))
+    dev = c.cl.window.device
+    up = [torch.as_tensor(v).to(dev) for v in (bc.state, *bc.long, *bc.short)]
+    bc = BsFrameCode(up[0], FrameCode(*up[1:5]), FrameCode(*up[5:]))
+    lead = bc.state.shape
+    flat = BsFrameCode(bc.state.reshape(-1), *(
+        FrameCode(*(v.reshape(-1, *v.shape[len(lead):]) for v in fc))
+        for fc in (bc.long, bc.short)))
+    y = decode_frame_bs(flat, cfg, c).reshape(*lead, -1)
+    return fb.overlap_add(y, cfg.n_mdct_lines, t)
+
+
+def payload_to_frames_bs(data: bytes, offset: int, n_blocks: int,
+                         cfg: CodecConfig, device=None) -> BsFrameCode:
+    """Host deserializer of the block-switch layout (SPEC.md §9;
+    tac/blockswitch.py:payload_to_frames_bs): the fields are the raw
+    layout's behind a 2-bit state, which picks each row's line→band map.
+    A BsFrameCode with int32 [C, F, ...] leaves on `device` (CUDA unless
+    named), the parsed encoding as both long and short."""
+    dev = resolve_device(device)
+    h, hs = cfg.n_mdct_lines, cfg.n_mdct_lines_short
+    ch = cfg.n_channels
+    bits, pre, alloc_code, alloc, sf, start = bs.parse_head(
+        data, offset, n_blocks * ch, cfg, (2, cfg.n_scale_bits))
+    state = pre[:, 0]
+    bol = np.where((state == SHORT)[:, None],
+                   np.tile(bands.band_of_line(cfg.sample_rate, hs), h // hs),
+                   bands.band_of_line(cfg.sample_rate, h))
+    m_line = np.take_along_axis(alloc, bol, axis=1).astype(np.int64)
+    mant = bs.read_raw_lines(bits, start, m_line)
+    st, ovs, ac, sfs, mt = (bs.from_rows(v, n_blocks, ch, dev) for v in
+                            (state, pre[:, 1], alloc_code, sf, mant))
+    fc = FrameCode(ovs=ovs, alloc_code=ac, scale=sfs, mant=mt)
+    return BsFrameCode(state=st, long=fc, short=fc)
 
 
 # ------------------------------------------------ Huffman × block switching ---

@@ -298,6 +298,41 @@ def encode_clip_packed(x, cfg: CodecConfig, device=None):
     return encode_frames_packed(frames, cfg, c)
 
 
+def _leaves(parts: list, lead: tuple):
+    """Per-chunk NamedTuples of [R_i, ...] leaves → one of [*lead, ...]."""
+    return type(parts[0])(*(
+        torch.cat(ls).reshape(*lead, *ls[0].shape[1:])
+        if isinstance(ls[0], torch.Tensor) else _leaves(list(ls), lead)
+        for ls in zip(*parts)))
+
+
+def encode_clip(x, cfg: CodecConfig, device=None) -> FrameCode:
+    """x: float [..., C, T] → FrameCode with [..., C, F, ...] leaves on
+    `device` (CUDA unless named): tac/codec.py:encode_clip, the quantized
+    frames before any bit packing, each row allocated alone at c's budget
+    (as tac's, this surface has no mid/side pairing). Rows are coded in
+    chunks of ENC_CHUNK."""
+    dev = resolve_device(device)
+    c = make_consts(cfg, dev)
+    frames = fb.frame_signal(torch.as_tensor(x).to(dev).to(c.dtype),
+                             cfg.n_mdct_lines)
+    parts = []
+    for fc in frames.reshape(-1, frames.shape[-1]).split(ENC_CHUNK):
+        lines, smr = analyze_frame(fc, cfg, c)
+        alloc = water_fill_alloc(smr, c.n_lines, c.budget, cfg)
+        parts.append(quantize_given_alloc(lines, alloc, cfg, c))
+    return _leaves(parts, frames.shape[:-1])
+
+
+def decode_clip(code: FrameCode, cfg: CodecConfig, t: int, device=None):
+    """FrameCode [..., C, F, ...] (tensors or arrays) → [..., C, T] audio on
+    `device` (CUDA unless named): tac/codec.py:decode_clip."""
+    c = make_consts(cfg, resolve_device(device))
+    code = FrameCode(*(torch.as_tensor(v).to(c.window.device) for v in code))
+    y = decode_frame(code, cfg, c)
+    return fb.overlap_add(y, cfg.n_mdct_lines, t)
+
+
 # ------------------------------------------- frame-level streaming cores ---
 
 def frames_from_halves(prior, halves, cfg: CodecConfig, c: CodecConsts):

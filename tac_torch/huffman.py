@@ -12,7 +12,8 @@ tensor: ``HuffConsts`` holds one set's cost rows [7, 256], encode rows
 reads, and the compact peek LUT (each table at its own longest codeword)
 that kernel K4 (tac_torch/ops/huffdec.py) holds in shared memory.
 ``host_tables`` builds them in NumPy; ``device_tables`` uploads any such
-set of arrays.
+set of arrays. The host serializers of api.py code and walk on the host
+(``encode_fields``, ``decode_lines``).
 """
 
 from __future__ import annotations
@@ -183,6 +184,69 @@ def device_tables(arrays: dict, device) -> HuffConsts:
         dec_pak=up(arrays["dec_pak"], torch.int32),
         lmax=int(np.asarray(arrays["dec_pak"]).shape[1]).bit_length() - 1,
         lut=up(lut, torch.int16), lut_tab=up(tab, torch.int32))
+
+
+def encode_fields(mant: np.ndarray, m_line: np.ndarray, set_id: int = 1):
+    """Host form of ``encode_fields_device`` (tac/huffman.py:encode_fields):
+    mant, m_line int[..., H] → (vals, wids) int64[..., H, 2]."""
+    codes, lens, escaped = _enc_arrays(set_id)
+    m = np.clip(m_line, 0, MAX_M)
+    codable = (m_line >= MIN_M) & (m_line <= MAX_M)
+    sym = np.clip(mant, 0, 2 ** MAX_M - 1)
+    cw = np.where(codable, codes[m, sym], mant)
+    cl = np.where(codable, lens[m, sym], m_line)
+    esc = codable & escaped[m, sym]
+    vals = np.stack([cw, np.where(esc, mant, 0)], axis=-1)
+    wids = np.stack([cl, np.where(esc, m_line, 0)], axis=-1)
+    return vals, wids
+
+
+def decode_lines(bits: np.ndarray, start: int, m_per_line: np.ndarray,
+                 set_id: int = 1) -> tuple[np.ndarray, int]:
+    """Serial canonical decode of one block's mantissas on the host
+    (tac/huffman.py:decode_lines, the bounds-checked walk).
+
+    bits: uint8[*] unpacked bit array; start: absolute bit offset;
+    m_per_line: int[H] mantissa size per line (0 = absent). Returns
+    (mant int64[H], end offset). Raises CorruptStreamError when a consuming
+    read crosses the end of the bits."""
+    from tac_torch.bitstream import CorruptStreamError
+
+    luts = _dec_luts(set_id)
+    out = np.zeros(len(m_per_line), np.int64)
+    pos = start
+    total = len(bits)
+
+    def read_raw(pos, m):
+        if pos + m > total:
+            raise CorruptStreamError("mantissa walk past end of payload")
+        v = 0
+        for _ in range(m):
+            v = (v << 1) | int(bits[pos])
+            pos += 1
+        return v, pos
+
+    for i, m in enumerate(m_per_line):
+        m = int(m)
+        if m == 0:
+            continue
+        if m < MIN_M or m > MAX_M:
+            out[i], pos = read_raw(pos, m)
+            continue
+        sym_lut, len_lut, width, esc = luts[m]
+        peek = 0
+        for j in range(width):
+            b = int(bits[pos + j]) if pos + j < total else 0
+            peek = (peek << 1) | b
+        s = int(sym_lut[peek])
+        pos += int(len_lut[peek])
+        if pos > total:
+            raise CorruptStreamError("huffman codeword past end of payload")
+        if s == esc:
+            out[i], pos = read_raw(pos, m)
+        else:
+            out[i] = s
+    return out, pos
 
 
 def encode_fields_device(mant: torch.Tensor, m_line: torch.Tensor,

@@ -103,50 +103,46 @@ def water_fill_rows_plain(smr_q: torch.Tensor, n_lines: torch.Tensor,
     band = torch.arange(nb, device=dev)
     alloc, rem = _warm_start(smr_q, nl, valid, budgets.to(torch.int64)[:, None],
                              dec, max_mant, rounds, n_bisect)
-    frozen = torch.zeros_like(valid)
+    live = valid.clone()            # valid and not frozen
     mm = torch.arange(max_mant, device=dev)
+    dec_m = dec[:max_mant]
     trips = torch.zeros((), dtype=torch.int64, device=dev)
     while True:
         need = smr_q - dec[alloc]
-        eligible = ~frozen & (alloc < max_mant) & valid & (nl <= rem)
+        eligible = live & (alloc < max_mant) & (nl <= rem)
         any_grant = eligible.any(-1, keepdim=True)
         # grant: argmax need over eligible bands, ties to the lowest band
         masked = torch.where(eligible, need, neg)
         mx = masked.amax(-1, keepdim=True)
-        at_max = eligible & (masked == mx)
-        bsel = torch.where(at_max, band, nb).amin(-1, keepdim=True)
-        onehot = band == bsel
-        n_b = torch.where(onehot, nl, 0).sum(-1, keepdim=True)
-        smr_b = torch.where(onehot, smr_q, 0.0).sum(-1, keepdim=True)
-        alloc_b = torch.where(onehot, alloc, 0).sum(-1, keepdim=True)
-        need2 = torch.where(eligible & ~onehot, need, neg).amax(-1, keepdim=True)
-        # multi-grant: k = #{m in [alloc_b, max_mant) : smr_b - DEC[m] > need2}
-        k = ((mm >= alloc_b) & (smr_b - dec[:max_mant] > need2)).sum(
+        bsel = torch.where(eligible & (masked == mx), band, nb).amin(
             -1, keepdim=True)
+        # (a row with no eligible band reads band nb - 1: it does not grant)
+        at = bsel.clamp(max=nb - 1)
+        n_b, smr_b, alloc_b = nl.gather(-1, at), smr_q.gather(-1, at), \
+            alloc.gather(-1, at)
+        need2 = torch.where(eligible & (band != bsel), need, neg).amax(
+            -1, keepdim=True)
+        # multi-grant: k = #{m in [alloc_b, max_mant) : smr_b - DEC[m] > need2}
+        k = ((mm >= alloc_b) & (smr_b - dec_m > need2)).sum(-1, keepdim=True)
         k = torch.minimum(k, max_mant - alloc_b)
         k = torch.minimum(k, torch.div(rem, n_b.clamp(min=1),
                                        rounding_mode="floor"))
         k = k.clamp(min=1)
-        g_alloc = alloc + torch.where(onehot, k, 0)
-        g_rem = rem - k * n_b
-        # freeze: the highest band holding a lone bit returns it for good
-        lone = (alloc == 1) & ~frozen
+        # freeze: the highest band holding a lone bit returns it for good (on
+        # a row without one, the freeze changes nothing)
+        lone = (alloc == 1) & live
         any_lone = lone.any(-1, keepdim=True)
-        hisel = torch.where(lone, band, -1).amax(-1, keepdim=True)
-        fhot = lone & (band == hisel)
-        f_alloc = torch.where(fhot, 0, alloc)
-        f_rem = rem + torch.where(fhot, nl, 0).sum(-1, keepdim=True)
-        f_frozen = frozen | fhot
+        fhot = lone & (band == torch.where(lone, band, -1).amax(-1, keepdim=True))
         active = any_grant | any_lone
         if not bool(active.any()):
             water_fill_rows_plain.trips += int(trips)
             return alloc.to(torch.int32)
         trips += active.sum()
-        alloc = torch.where(any_grant, g_alloc,
-                            torch.where(any_lone, f_alloc, alloc))
-        rem = torch.where(any_grant, g_rem, torch.where(any_lone, f_rem, rem))
-        frozen = torch.where(any_grant, frozen,
-                             torch.where(any_lone, f_frozen, frozen))
+        alloc = torch.where(any_grant, alloc.scatter_add(-1, at, k),
+                            torch.where(fhot, 0, alloc))
+        rem = torch.where(any_grant, rem - k * n_b,
+                          rem + torch.where(fhot, nl, 0).sum(-1, keepdim=True))
+        live = live & ~(fhot & ~any_grant)
 
 
 water_fill_rows_plain.trips = 0

@@ -11,7 +11,9 @@ with mantissa size m:
 Reads take two adjacent big-endian words whose indices both clip to
 [0, W32 − 1] (tac/codec.py:_read_bits_at), in the kernel and in the plain
 version alike, so a walk that runs past its payload gives the same
-(discarded) values in both.
+(discarded) values in both. The plain version reads each line's bits once:
+a codeword (at most 16 bits) and the raw bits after it (at most 16) lie in
+the 32 bits from ``pos`` on, inside the two words at ``pos``.
 
 A decode holds rows of every tableId: ``huffman_decode_sets`` walks each
 row with its own set (tid s ∈ [1, len(huff)]) and leaves the others'
@@ -37,28 +39,18 @@ from tac_torch.huffman import MAX_M, MIN_M, N_TAB, HuffConsts
 _MASK32 = 0xFFFFFFFF
 
 
-def read_bits_at(wz: torch.Tensor, pos: torch.Tensor, width) -> torch.Tensor:
-    """Per-row bit read: wz int64 [K, W32 + 2] a row's words (values in
-    [0, 2^32)) between a copy of its first and of its last word
-    (``_padded_words``), pos int64 [K] bit offsets in the row, width int or
-    int64 [K] in [0, 32] (0 → 0) → int64 [K]. Word indices past either end
-    of the row clip to its first / last word."""
-    word0 = torch.clamp((pos >> 5) + 1, 0, wz.shape[1] - 2)[:, None]
-    r = pos & 31
-    hi = torch.gather(wz, 1, word0)[:, 0]
-    lo = torch.gather(wz, 1, word0 + 1)[:, 0]
-    # hi, lo and merged are below 2^32, so a shift by 32 (r = 0, width 0)
-    # reads 0
-    merged = ((hi << r) & _MASK32) | (lo >> (32 - r))
-    return merged >> (32 - width)
-
-
-def _padded_words(words: torch.Tensor) -> torch.Tensor:
-    """int32 [K, W32] → int64 [K, W32 + 2], values in [0, 2^32): the words
-    between a copy of the first and of the last, which ``read_bits_at``
-    reads for indices clipped to either end."""
+def _word_pairs(words: torch.Tensor) -> torch.Tensor:
+    """int32 [K, W32] → int64 [K, W32 + 1]: entry i holds the 64-bit pair of
+    words (i − 1, i) of the row, indices clipped to [0, W32 − 1], so that a
+    read at bit offset pos finds its two words at i = pos // 32 + 1, clipped
+    to [0, W32]."""
     wz = words.to(torch.int64) & _MASK32
-    return torch.cat([wz[:, :1], wz, wz[:, -1:]], dim=1)
+    wz = torch.cat([wz[:, :1], wz, wz[:, -1:]], dim=1)
+    return (wz[:, :-1] << 32) | wz[:, 1:]
+
+
+# (1 << w) - 1 for each field width w in [0, 32]
+_LOW_BITS = [(1 << w) - 1 for w in range(33)]
 
 
 def _flat_luts(huff: tuple):
@@ -86,7 +78,10 @@ def _walk(words, mant_start, m_line, luts, sid, lmax) -> torch.Tensor:
     cols = torch.nonzero(m_line.ne(0).any(0)).flatten()
     if cols.numel() == 0:
         return out
-    wz = _padded_words(words)
+    pairs = _word_pairs(words)
+    top = pairs.shape[1] - 1
+    row0 = torch.arange(pairs.shape[0], device=words.device) * pairs.shape[1]
+    pairs = pairs.reshape(-1)
     m = m_line[:, cols].to(torch.int64)
     codable = (m >= MIN_M) & (m <= MAX_M)
     # per line: where its table starts in pak (the zero entries where no
@@ -97,16 +92,22 @@ def _walk(words, mant_start, m_line, luts, sid, lmax) -> torch.Tensor:
                        zero)
     esc_sym = torch.where(codable, 1 << m, -1)
     raw_m = torch.where(codable, 0, m)
+    peek = 32 - lmax
+    low = torch.tensor(_LOW_BITS, device=words.device)
     pos = mant_start.to(torch.int64)
     vals = []
     for b, e, rm, mj in zip(base.T, esc_sym.T, raw_m.T, m.T):
-        code = pak[b + read_bits_at(wz, pos, lmax)]
+        # the 32 bits from pos on, from the pair of words at pos
+        i = torch.clamp((pos >> 5) + 1, 0, top)
+        win = (pairs[row0 + i] >> (32 - (pos & 31))) & _MASK32
+        code = pak[b + (win >> peek)]
         sym, ln = code & 0xFFFF, code >> 16
         esc = sym == e
         raw_bits = torch.where(esc, mj, rm)
+        used = ln + raw_bits
         vals.append(torch.where(esc, 0, sym)
-                    | read_bits_at(wz, pos + ln, raw_bits))
-        pos = pos + ln + raw_bits
+                    | ((win >> (32 - used)) & low[raw_bits]))
+        pos = pos + used
     out[:, cols] = torch.stack(vals, dim=1).to(torch.int32)
     return out
 

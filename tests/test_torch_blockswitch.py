@@ -32,6 +32,10 @@ from tac_torch.ops import bitpack as tbp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
+# tac's flag and state layers jitted, as its encoders run them (eager, each
+# op dispatches and compiles on its own)
+tac_flags = jax.jit(jbs.transient_flags, static_argnums=1)
+tac_states = jax.jit(jbs.window_states, static_argnums=1)
 FS = 44100
 
 
@@ -167,7 +171,7 @@ def test_flags_and_states_equal_tac(clip):
         tcfg = TPRESETS["streaming-ll"].replace(precision=precision)
         dt = np.float64 if precision == "parity" else np.float32
         f = jm.num_frames(x.shape[-1], jcfg.n_mdct_lines)
-        want_fl = np.asarray(jbs.transient_flags(jnp.asarray(x, dt), jcfg))
+        want_fl = np.asarray(tac_flags(jnp.asarray(x, dt), jcfg))
         got_fl = tb.transient_flags(torch.tensor(x.astype(dt)), tcfg)
         assert got_fl.dtype == torch.bool
         np.testing.assert_array_equal(got_fl.numpy(), want_fl)
@@ -175,7 +179,7 @@ def test_flags_and_states_equal_tac(clip):
         got_st = tb.window_states(got_fl, f)
         assert got_st.dtype == torch.int32 and got_st.shape == (x.shape[0], f)
         np.testing.assert_array_equal(
-            got_st.numpy(), np.asarray(jbs.window_states(jnp.asarray(want_fl), f)))
+            got_st.numpy(), np.asarray(tac_states(jnp.asarray(want_fl), f)))
         for row in got_st.tolist():
             assert all(p in legal for p in zip(row[:-1], row[1:])), row
             seen.update(row)
@@ -190,7 +194,7 @@ def test_window_states_on_random_flags():
         flags = rng.random((6, kb)) < 0.3
         np.testing.assert_array_equal(
             tb.window_states(torch.tensor(flags), f).numpy(),
-            np.asarray(jbs.window_states(jnp.asarray(flags), f)))
+            np.asarray(tac_states(jnp.asarray(flags), f)))
 
 
 def test_bs_parity_digest_matches_golden():
@@ -224,7 +228,7 @@ def test_bs_decision_layers_identical():
     x = np.concatenate([_transient_clip()[:, 0], _all_short_clip()[:, 0]])
     xj = jnp.asarray(x[None], jcons.cl.dtype)
     frames = jm.frame_signal(xj, jcfg.n_mdct_lines)[0]       # [F, N]
-    states = jbs.window_states(jbs.transient_flags(xj, jcfg), frames.shape[0])[0]
+    states = tac_states(tac_flags(xj, jcfg), frames.shape[0])[0]
     ll, sl, ls, ss = jax.jit(jax.vmap(
         lambda fr, st: jbs.analyze_frame_bs(fr, st, jcfg, jcons)))(frames, states)
 

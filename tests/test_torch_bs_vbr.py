@@ -31,6 +31,11 @@ from tac_torch.ops import bitpack as tbp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
+# tac's reservoir chain jitted, as its encoders run it (eager, each op
+# around the scan dispatches and compiles on its own)
+tac_chain = jax.jit(jc._reservoir_chain, static_argnums=(4, 5, 6))
+tac_flags = jax.jit(jbs.transient_flags, static_argnums=1)
+tac_states = jax.jit(jbs.window_states, static_argnums=1)
 FS = 44100
 SMALL = dict(n_mdct_lines=256, n_mdct_lines_short=64, n_channels=1)
 
@@ -113,7 +118,7 @@ def test_bs_vbr_decision_layers_identical():
     xj = jnp.asarray(x, jcons.cl.dtype)
     frames = jm.frame_signal(xj, jcfg.n_mdct_lines)           # [L, F, N]
     lanes, f = frames.shape[:2]
-    states = jbs.window_states(jbs.transient_flags(xj, jcfg), f)
+    states = tac_states(tac_flags(xj, jcfg), f)
     rows, st_rows = frames.reshape(lanes * f, -1), states.reshape(-1)
 
     @jax.jit
@@ -142,9 +147,9 @@ def test_bs_vbr_decision_layers_identical():
         return a.reshape(lanes, f, *a.shape[1:]).swapaxes(0, 1)
 
     cap_res = jcfg.reservoir_factor * jcons.cl.budget
-    want = jc._reservoir_chain(to_fl(smr), to_fl(bh), to_fl(nl),
-                               jnp.zeros(lanes, jnp.int32), jcons.cl.budget,
-                               cap_res, jcfg)
+    want = tac_chain(to_fl(smr), to_fl(bh), to_fl(nl),
+                     jnp.zeros(lanes, jnp.int32), jcons.cl.budget,
+                     cap_res, jcfg)
     t_nl = tb.state_n_lines(st.reshape(lanes, f).transpose(0, 1), c)
     np.testing.assert_array_equal(t_nl.numpy(), np.asarray(to_fl(nl)))
     got = tc._reservoir_chain(

@@ -709,3 +709,97 @@ def test_fast_stream_mid_push_kernels_equal_plain(dev, monkeypatch):
         for g, w in zip(vbr_scan.vbr_reservoir_scan(*a, **kw),
                         vbr_scan.vbr_reservoir_scan_plain(*a, **kw)):
             assert torch.equal(g, w)
+
+
+def _corpus_wavs(tmp_path, n=4):
+    """n seeded stereo 44.1 kHz WAVs of 1.0-1.9 s (two length buckets)."""
+    from tac_torch.io.wav import write_wav
+
+    rng = np.random.default_rng(11)
+    paths = []
+    for i in range(n):
+        m = int(44100 * (1.0 + 0.3 * i))
+        t = np.arange(m) / 44100
+        x = 0.4 * np.sin(2 * np.pi * (220 + 55 * i) * t) \
+            + 0.02 * rng.standard_normal(m)
+        p = str(tmp_path / f"c{i}.wav")
+        write_wav(p, np.stack([x, 0.8 * np.roll(x, 31)], 1), 44100)
+        paths.append(p)
+    return paths
+
+
+def test_parity_corpus_on_card_equals_solo(dev, tmp_path):
+    """The corpus preset in parity precision on the card: each batched .pac
+    equals the solo encode_array on the card, byte for byte, and K2 packs
+    the batch (parity allocates with the plain f64 loops)."""
+    import os
+
+    from tac_torch import api
+    from tac_torch.corpus import CorpusTranscoder
+    from tac_torch.io.wav import read_wav
+
+    cfg = PRESETS["corpus"].replace(precision="parity")
+    paths = _corpus_wavs(tmp_path)
+    out = tmp_path / "out"
+    tc_ = CorpusTranscoder(cfg, str(out), batch_size=4, device=dev)
+    tc_._encode_one = None                      # no per-clip fallback
+    before = tk2.scatter_words_rows.launches
+    assert tc_.run(paths, log=lambda *a: None)["ok"] == 4
+    assert tk2.scatter_words_rows.launches > before
+    for p in paths:
+        pac = out / (os.path.basename(p)[:-4] + ".pac")
+        assert pac.read_bytes() == api.encode_array(read_wav(p)[0], cfg,
+                                                    device=dev)
+
+
+def test_cli_encode_on_card_runs_k1_k2(dev, tmp_path, capsys):
+    """The CLI's encode with no --device runs on the card: K1 and K2
+    launch, and the file is encode_array's bytes on the card."""
+    from tac_torch import api, cli
+    from tac_torch.io.wav import read_wav
+
+    src = _corpus_wavs(tmp_path, 1)[0]
+    pac = str(tmp_path / "o.pac")
+    before = (tk1.water_fill_rows.launches, tk2.scatter_words_rows.launches)
+    assert cli.main(["encode", src, pac, "--preset", "corpus"]) == 0
+    assert tk1.water_fill_rows.launches > before[0]
+    assert tk2.scatter_words_rows.launches > before[1]
+    assert open(pac, "rb").read() == api.encode_array(
+        read_wav(src)[0], PRESETS["corpus"], device=dev)
+
+
+def test_vbr_corpus_decode_on_card_runs_k4(dev, tmp_path):
+    """corpus-decode of vbr-huffman streams on the card: one K4 launch per
+    batch, each WAV within one 16-bit LSB of the solo decode on the card;
+    all-zero padding rows decode to silence through K4."""
+    import os
+
+    from tac_torch import api, parallel
+    from tac_torch.corpus import CorpusDecoder, CorpusTranscoder
+    from tac_torch.io.wav import read_wav
+
+    cfg = PRESETS["vbr-huffman"]
+    paths = _corpus_wavs(tmp_path)
+    enc = tmp_path / "enc"
+    CorpusTranscoder(cfg, str(enc), batch_size=4, device=dev).run(
+        paths, log=lambda *a: None)
+    pacs = [str(enc / (os.path.basename(p)[:-4] + ".pac")) for p in paths]
+    dec = CorpusDecoder(str(tmp_path / "dec"), batch_size=4, device=dev)
+    dec._decode_one = None
+    before = tk4.huffman_decode_sets.launches
+    assert dec.run(pacs, log=lambda *a: None)["ok"] == 4
+    assert tk4.huffman_decode_sets.launches == before + 1
+    for p in pacs:
+        y = read_wav(str(tmp_path / "dec" / (os.path.basename(p)[:-4]
+                                              + ".wav")))[0]
+        ref = api.decode_array(open(p, "rb").read(), "fast", device=dev)[0]
+        np.testing.assert_allclose(
+            y, np.clip(np.round(ref * 32768.0), -32768, 32767) / 32768.0,
+            rtol=0, atol=1.001 / 32768.0)
+    w32 = api.payload_words(cfg)
+    zeros = np.zeros((2, 2, 32, w32), np.int32)
+    before = tk4.huffman_decode_sets.launches
+    y = parallel.decode_batch_packed(zeros, cfg, 31 * cfg.n_mdct_lines,
+                                     pcm16=True, device=dev)
+    assert tk4.huffman_decode_sets.launches == before + 1
+    assert y.dtype == torch.int16 and not y.any()

@@ -14,6 +14,7 @@ import functools
 import json
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -30,6 +31,9 @@ from tac_torch.ops.bitpack import pack_rows
 
 CPU = torch.device("cpu")
 JCFG, TCFG = JPRESETS["vbr-huffman"], TPRESETS["vbr-huffman"]
+# tac's lax.scan walk jitted, as its decoders run it (eager, each op around
+# the scan dispatches and compiles on its own)
+tac_scan = jax.jit(jc._huffman_decode_scan, static_argnames="set_id")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,8 +60,8 @@ def _three_ways(words_i32, mant_start, m_line, sid, hc=None):
         torch.from_numpy(m_line), hc)
     assert plain.dtype == torch.int32
     wj = jnp.asarray(words_i32.view(np.uint32))
-    scan = jc._huffman_decode_scan(wj, jnp.asarray(mant_start),
-                                   jnp.asarray(m_line), set_id=sid)
+    scan = tac_scan(wj, jnp.asarray(mant_start), jnp.asarray(m_line),
+                    set_id=sid)
     kern = pallas_decode(wj, jnp.asarray(mant_start), jnp.asarray(m_line),
                          interpret=True, set_id=sid)
     return plain.numpy(), np.asarray(scan), np.asarray(kern)
@@ -136,8 +140,8 @@ def test_plain_sets_entry_on_mixed_tac_rows():
     wj = jnp.asarray(w.view(np.uint32))
     for sid in (1, 2):
         here = tid == sid
-        scan = jc._huffman_decode_scan(wj, jnp.asarray(mant_start),
-                                       jnp.asarray(m_line), set_id=sid)
+        scan = tac_scan(wj, jnp.asarray(mant_start), jnp.asarray(m_line),
+                        set_id=sid)
         np.testing.assert_array_equal(got[here], np.asarray(scan)[here])
     np.testing.assert_array_equal(got[tid == 0], raw[tid == 0])
 
@@ -242,8 +246,8 @@ def test_plain_k4_past_the_payload_clips_like_tac(rng):
     plain = tk4.huffman_decode_rows_plain(
         torch.from_numpy(words), torch.from_numpy(mant_start),
         torch.from_numpy(m_line), hc).numpy()
-    scan = jc._huffman_decode_scan(jnp.asarray(words.view(np.uint32)),
-                                   jnp.asarray(mant_start), jnp.asarray(m_line))
+    scan = tac_scan(jnp.asarray(words.view(np.uint32)),
+                    jnp.asarray(mant_start), jnp.asarray(m_line))
     np.testing.assert_array_equal(plain, np.asarray(scan))
 
 

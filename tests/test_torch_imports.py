@@ -49,7 +49,9 @@ def test_port_imports_and_encodes_with_jax_and_tac_blocked():
         "import tac_torch, tac_torch.codec, tac_torch.ops.alloc, "
         "tac_torch.ops.pack, tac_torch.ops.vbr_scan, tac_torch.ops.huffdec, "
         "tac_torch.ops.mdct_fused, tac_torch.blockswitch, tac_torch.filterbank, "
-        "tac_torch.huffman, tac_torch._build, tac_torch.streaming\n"
+        "tac_torch.huffman, tac_torch._build, tac_torch.streaming, "
+        "tac_torch.io.wav, tac_torch.parallel, tac_torch.corpus, "
+        "tac_torch.cli, tac_torch.tuning\n"
         "for preset in ('stereo44-128', 'vbr-huffman', 'vbr-bs', 'vbr-ms-bs'):\n"
         "    data = tac_torch.encode_array(np.zeros((3000, 2)), "
         "tac_torch.PRESETS[preset], device='cpu')\n"

@@ -11,6 +11,7 @@ import os
 import sys
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -106,7 +107,7 @@ def test_joint_allocation_equals_tac(widths):
         pair_short = rng.random(m // 2) < 0.4
         nl = np.where(np.repeat(pair_short, 2)[:, None], short, NL)
     jcfg = JPRESETS["stereo44-128-ms"]
-    want = np.asarray(jc._joint_alloc_pair_rows(
+    want = np.asarray(jax.jit(jc._joint_alloc_pair_rows, static_argnums=(2, 3))(
         jnp.asarray(smr, jnp.float32), jnp.asarray(nl, jnp.int32), 1282, jcfg))
     nl_t = torch.tensor(nl, dtype=torch.int32)
     for prec, dt in (("fast", torch.float32), ("parity", torch.float64)):
@@ -145,8 +146,9 @@ def test_joint_reservoir_equals_tac(widths):
     nl_j = jnp.concatenate([jnp.asarray(NL)] * 2) if widths == "shared" \
         else to_fl(nl_rows)
     jcfg = JPRESETS["vbr-ms"]
-    want = jc._reservoir_chain(to_fl(smr), to_fl(bh), nl_j,
-                               jnp.zeros(p, jnp.int32), base, 4 * base, jcfg)
+    want = jax.jit(jc._reservoir_chain, static_argnums=(4, 5, 6))(
+        to_fl(smr), to_fl(bh), nl_j, jnp.zeros(p, jnp.int32), base, 4 * base,
+        jcfg)
     nl_t = (torch.tensor(np.concatenate([NL, NL]), dtype=torch.int32)
             if widths == "shared"
             else tc.frame_major(torch.tensor(nl_rows, dtype=torch.int32), p, f))

@@ -5,6 +5,7 @@ pack_rows and the Pallas kernel in interpret mode. Words and bytes are
 integers: every comparison is exact."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -50,7 +51,8 @@ def test_plain_k2_matches_tac(shape, interpret):
     rng = np.random.default_rng(r + nf)
     vals, wids = _fields(rng, r, nf)
     w32 = -(-cap // 32)
-    want, want_n = jbp.pack_rows(jnp.asarray(vals), jnp.asarray(wids), cap)
+    want, want_n = jax.jit(jbp.pack_rows, static_argnums=2)(
+        jnp.asarray(vals), jnp.asarray(wids), cap)
     got, got_n = tbp.pack_rows(torch.from_numpy(vals), torch.from_numpy(wids), cap)
     assert got.dtype == torch.int32 and got.shape == (r, w32)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))

@@ -27,6 +27,9 @@ from tac_torch.ops import bitpack as tbp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
+# tac's reservoir chain jitted, as its encoders run it (eager, each op
+# around the scan dispatches and compiles on its own)
+tac_chain = jax.jit(jc._reservoir_chain, static_argnums=(4, 5, 6))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,9 +104,9 @@ def test_vbr_decision_layers_identical(clip44):
         return x.reshape(lanes, f, *x.shape[1:]).swapaxes(0, 1)
 
     cap_res = jcfg.reservoir_factor * jcons.budget
-    want = jc._reservoir_chain(to_fl(smr), to_fl(want_bh), jcons.n_lines,
-                               jnp.zeros(lanes, jnp.int32), jcons.budget,
-                               cap_res, jcfg)
+    want = tac_chain(to_fl(smr), to_fl(want_bh), jcons.n_lines,
+                     jnp.zeros(lanes, jnp.int32), jcons.budget,
+                     cap_res, jcfg)
     got = tc._reservoir_chain(
         to_fl(st).contiguous(), to_fl(got_bh).contiguous(), tcons.n_lines,
         torch.zeros(lanes, dtype=torch.int32), tcons.budget, cap_res, tcfg)

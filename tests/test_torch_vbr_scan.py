@@ -5,6 +5,7 @@ in interpret mode — on the cases of tests/test_pallas_vbr_scan.py plus three
 table sets. alloc / tid / used / res are integers and must be equal."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -22,6 +23,9 @@ from tac_torch.ops import alloc as tk1
 from tac_torch.ops import vbr_scan as tk3
 
 NL = bands.lines_per_band(44100, 1024)
+# tac's reservoir chain jitted, as its encoders run it (eager, each op
+# around the scan dispatches and compiles on its own)
+tac_chain = jax.jit(jc._reservoir_chain, static_argnums=(4, 5, 6))
 NL_S = 2 * bands.lines_per_band(44100, 512)
 B = len(NL)
 NAMES = ["alloc", "tid", "used", "res"]
@@ -51,9 +55,9 @@ def _inputs(rng, f, lanes, nl=NL, n_sets=1, per_frame_nl=False):
 
 def _tac_scan(smr, bh, nl, res0, base, cap):
     """The lax.scan path (CPU backend: tac's kernel gate is off)."""
-    out = jc._reservoir_chain(jnp.asarray(smr), jnp.asarray(bh),
-                              jnp.asarray(nl), jnp.asarray(res0), base, cap,
-                              JPRESETS["vbr-huffman"])
+    out = tac_chain(jnp.asarray(smr), jnp.asarray(bh),
+                    jnp.asarray(nl), jnp.asarray(res0), base, cap,
+                    JPRESETS["vbr-huffman"])
     return [np.asarray(x) for x in out]
 
 
@@ -177,7 +181,7 @@ def test_reservoir_chain_parity_and_uniform(rng):
         out = tc._reservoir_chain(
             torch.tensor(smr), torch.tensor(bh), torch.tensor(nl),
             torch.tensor(res0), 700, 2800, TPRESETS["vbr-huffman"].replace(**change))
-        ref = jc._reservoir_chain(
+        ref = tac_chain(
             jnp.asarray(smr), jnp.asarray(bh), jnp.asarray(nl), jnp.asarray(res0),
             700, 2800, JPRESETS["vbr-huffman"].replace(**change))
         for g, r, what in zip(out, ref, NAMES):
