@@ -9,14 +9,16 @@ Phases, each of which fails the run (non-zero exit) on error:
   2. build: all seven CUDA kernels from tac_torch/csrc (one nvcc per
      source, all started together), with nvcc's register / shared-memory /
      spill lines;
- 2a. K6 (row_gemm, the fast encoders' products) and K7 (segment_sum, their
-     band and transient sums), the port's kernels with no TPU counterpart,
-     on every product and band sum of one flagship encode and at each
-     product shape of the presets: K6 within K * 2^-23 * sum|a||b| of its
-     plain version, K7 equal to its plain version on the CPU; the rows of
-     each equal bit for bit across M in {1, 2, 3, 2047, 2048, 2049,
-     20704}, a permutation and leading axes; times against the library's
-     calls (``phase_row_kernels``);
+ 2a. K6 (row_gemm, the fast encoders' products: an FFMA chain per output)
+     and K7 (segment_sum, their band and transient sums: a warp per row), the
+     port's kernels with no TPU counterpart, on every product and band sum
+     of one flagship encode and at each product shape of the presets (2 048
+     rows, and 1 and 2 049): K6 within K * 2^-23 * sum|a||b| of its plain
+     version, K7 equal to its plain version on the CPU (40 and 64 segments
+     too); the rows of each equal bit for bit across M in {1, 2, 3, 2047,
+     2048, 2049, 20704}, a permutation and leading axes; times (events and
+     the profiler's device time) against the library's calls
+     (``phase_row_kernels``);
  2b. the batch-invariance diagnostic (``phase_batch_invariance``): the
      nine golden families in fast precision, a noisy and a pure-tone clip
      each, solo against inside batches of 2 / 8 / 16 and as a stream of
@@ -82,7 +84,9 @@ Phases, each of which fails the run (non-zero exit) on error:
      presets run (printed, not gated);
  11. parity on the card: the nine golden streams of goldens/streams.json
      (config1/2/3/5/6 and the M/S config7-10) encoded in parity precision
-     on the card must hash to their goldens;
+     on the card must hash to their goldens; then DC and Nyquist (lines
+     zero in exact arithmetic) under mono16-64 and vbr-huffman at 16 kHz
+     mono, the card's bytes equal to the CPU's (``phase_zero_line_parity``);
  12. streaming and random access (``phase_stream``): the nine golden clips
      streamed in parity (one push; seeded random pushes with a mid-stream
      StreamState resume) against their goldens, and their StreamDecoders
@@ -125,7 +129,8 @@ Phases, each of which fails the run (non-zero exit) on error:
      cards or more, the sharded path on 2 NCCL ranks.
 It prints "batch_invariance", "profile", "main_path", "profile_vbr", "vbr_path", "mdct_path",
 "profile_bs", "bs_path", "profile_bs_vbr", "bs_vbr_path", one "ms_path" per
-M/S family, two "ms_vs_lr", "parity_on_card", "stream_parity_on_card",
+M/S family, two "ms_vs_lr", "parity_on_card", "zero_line_parity",
+"stream_parity_on_card",
 "stream_path", "seek_path", "fuzz_on_card", two "corpus_path",
 "corpus_pure_tones", "corpus_ladder", two "mesh_corpus", "mesh_path" and
 "kernels" JSON lines, and last {"ok": true, "device": {...}}. Without
@@ -550,12 +555,27 @@ def phase_row_kernels(frames, card: str) -> tuple:
                                k6.row_matmul_plain(a, b))
             check(e[1] <= 1.0, f"K6 at {k} -> {n} differs from its plain "
                   "version beyond its bound")
+            bm, bn = k6.tile(k, n)
+            check(2048 % bm == 0 and (2048 // bm) * -(-n // bn) == 128,
+                  f"K6's tile {bm} x {bn} at {k} -> {n} does not give a "
+                  "2 048-row launch 128 blocks")
             worst6 = max(worst6[0], e[0]), max(worst6[1], e[1])
             tb, _ = bound(4 * (2048 * k + k * n + 2048 * n), 2 * 2048 * k * n)
             shapes[f"{k}x{n}"] = {
-                "rows": 2048, "ms": cuda_ms(lambda: k6.row_matmul(a, b), 20),
+                "rows": 2048, "tile": [bm, bn],
+                "ms": cuda_ms(lambda: k6.row_matmul(a, b), 20),
+                "device_ms": profile_device(
+                    lambda: k6.row_matmul(a, b))["device_busy_ms"],
                 "library_ms": cuda_ms(lambda: a @ b, 20), "bound_ms": tb,
                 "max_abs_err": e[0], "err_over_bound": e[1]}
+            # one row and 2 049 rows (a row tile of its own) at this shape
+            for m in (1, 2049):
+                am = torch.cat([a, a[:1]])[:m]
+                em = k6_bound_ratio(am, b, k6.row_matmul(am, b),
+                                    k6.row_matmul_plain(am, b))
+                check(em[1] <= 1.0, f"K6 at {k} -> {n}, {m} rows, differs "
+                      "from its plain version beyond its bound")
+                worst6 = max(worst6[0], em[0]), max(worst6[1], em[1])
         # invariance: the flagship MDCT over all 20 704 rows, and 3-D rows
         inv6 = rows_invariant(lambda a: k6.row_matmul(a, c.fwd_basis), frames)
         sub = frames[:2048, :2048].reshape(2048, 8, 256).contiguous()
@@ -584,7 +604,18 @@ def phase_row_kernels(frames, card: str) -> tuple:
                    * k7.segment_sums_plain(x.abs().double(), ranges))
             worst7 = max(worst7, float(((got.double() - want.double()).abs()
                                         / tol.clamp_min(1e-300)).max()))
-        print(f"  K7 ({len(g7)} calls: band sums, transient prefixes): equal "
+        # more than 32 segments (a lane takes two), 40 and 64 of them
+        xs7 = frames[:2048, :1024].contiguous()
+        for nseg in (40, 64):
+            cuts = np.sort(rng.integers(0, 1025, 2 * nseg)).reshape(nseg, 2)
+            g7.append((xs7, tuple((int(a_), int(b_)) for a_, b_ in cuts)))
+        for x, ranges in g7[-2:]:
+            got = k7.segment_sums(x, ranges)
+            bitwise7 &= bool(torch.equal(got.cpu(),
+                                         k7.segment_sums_plain(x.cpu(), ranges)))
+        g7 = g7[:-2]
+        print(f"  K7 ({len(g7)} calls: band sums, transient prefixes; and 40 / "
+              "64 segments): equal "
               f"to the CPU plain version {bitwise7}, {worst7:.4f} of the "
               "bound against the card's")
         check(bitwise7 and worst7 <= 1.0, "K7 differs from its plain version")
@@ -602,7 +633,13 @@ def phase_row_kernels(frames, card: str) -> tuple:
         ms6_mdct = cuda_ms(lambda: [k6.row_matmul(a, b) for a, b in mdct], 5)
         lib6_mdct = cuda_ms(lambda: [a @ b for a, b in mdct], 5)
         _, plain6 = timed(lambda: [k6.row_matmul_plain(a, b) for a, b in g6])
+        dev6 = profile_device(lambda: [k6.row_matmul(a, b) for a, b in g6])
         ms7 = cuda_ms(lambda: [k7.segment_sums(x, r) for x, r in band], 20)
+        dev7 = profile_device(lambda: [k7.segment_sums(x, r) for x, r in band])
+        prefix = [(x, r) for x, r in g7[len(band):] if r[0] == (0, 0)]
+        ms7_prefix = (cuda_ms(lambda: [k7.segment_sums(x, r)
+                                       for x, r in prefix], 20)
+                      if prefix else None)
         plain7 = cuda_ms(lambda: [k7.segment_sums_plain(x, r)
                                   for x, r in band], 5)
         # the library's one call for contiguous segments
@@ -635,11 +672,16 @@ def phase_row_kernels(frames, card: str) -> tuple:
                     "jnp.dot: tac/codec.py:153, tac/psy.py:293, "
                     "tac/blockswitch.py:165, :177)",
         "ok": True, "max_abs_err": worst6[0], "err_over_bound": worst6[1],
-        "design": "128 x 128 tile a 256-thread block, 8 x 8 outputs a "
-                  "thread, k-slices of 8 double-buffered in shared memory; "
-                  "each output one FFMA chain in k order (no split-K)",
+        "design": "register-blocked FFMA sgemm on the CUDA cores: tile "
+                  "by N alone (128 x 128 from 1 024 columns, 128 x 64, "
+                  "64 x 64, 64 x 32, 32 x 32 below; 128 blocks a 2 048-row "
+                  "launch), 8 x 8 / 8 x 4 / 4 x 4 outputs a thread, k-slices "
+                  "of 16 double-buffered in shared memory (B by cp.async, A "
+                  "transposed through registers); each output one FFMA "
+                  "chain in k order (no split-K)",
         "rows_invariant": inv6,
-        "ms": ms6, "launches_per_flagship_encode": len(g6),
+        "ms": ms6, "device_ms": dev6["device_busy_ms"],
+        "launches_per_flagship_encode": len(g6),
         "plain_ms": plain6, "bound_ms": b6, "bound_by": b6_by,
         "library_ms": lib6, "ms_flagship_mdct": ms6_mdct,
         "library_ms_flagship_mdct": lib6_mdct, "bound_ms_flagship_mdct": b6m,
@@ -652,13 +694,18 @@ def phase_row_kernels(frames, card: str) -> tuple:
                     "tac/blockswitch.py)",
         "ok": True, "max_abs_err": 0, "equal_to_cpu_plain": bitwise7,
         "err_over_bound_vs_card_plain": worst7,
-        "design": "thread per row, segments in turn, double accumulator in "
-                  "index order; segment table by value",
+        "design": "warp per row, 8 rows a block; the row staged in shared "
+                  "memory by coalesced 16-byte loads, 1 024 floats at a "
+                  "time; lane i adds segments i and i + 32 in index order "
+                  "into doubles (nested prefixes too, a lane each); "
+                  "segment table by value",
         "rows_invariant": inv7,
-        "ms": ms7, "launches_per_flagship_encode": len(band),
+        "ms": ms7, "device_ms": dev7["device_busy_ms"],
+        "ms_transient_prefixes": ms7_prefix,
+        "launches_per_flagship_encode": len(band),
         "plain_ms": plain7, "bound_ms": b7, "bound_by": b7_by,
         "library_ms": lib7}
-    del g6, g7, band, mdct, xr
+    del g6, g7, band, mdct, xr, xs7, prefix
     return k6_entry, k7_entry
 
 
@@ -1526,9 +1573,38 @@ GOLDEN_CASES = {
 }
 
 
+def phase_zero_line_parity(card: str) -> dict:
+    """Phase 11a: parity on lines that are zero in exact arithmetic (tac's
+    tests/test_edge_cases.py material: 0.25 DC and 0.25 cos(pi n)), under
+    mono16-64 (4 096 samples) and vbr-huffman at 16 kHz mono (8 192): the
+    card's stream equals the port's CPU stream byte for byte (the forward
+    FFT is numpy's on both; tests/test_torch_edge.py holds the CPU stream
+    to tac's)."""
+    from tac_torch import api
+    from tac_torch.config import PRESETS
+
+    cases = {}
+    for preset, n, change in (("mono16-64", 4096, {}),
+                              ("vbr-huffman", 8192,
+                               {"sample_rate": 16000, "n_channels": 1})):
+        cfg = PRESETS[preset].replace(precision="parity", **change)
+        for material in ("dc", "nyquist"):
+            x = (np.full((n, 1), 0.25) if material == "dc"
+                 else (0.25 * np.cos(np.pi * np.arange(n)))[:, None])
+            card_bytes = api.encode_array(x, cfg)
+            cpu_bytes = api.encode_array(x, cfg, device="cpu")
+            cases[f"{preset}/{material}"] = {
+                "bytes": len(card_bytes), "equal": card_bytes == cpu_bytes}
+    print(json.dumps({"zero_line_parity": {"cases": cases, "card": card}}))
+    check(all(v["equal"] for v in cases.values()),
+          "parity streams of DC / Nyquist differ between the card and the CPU")
+    return cases
+
+
 def phase_parity_on_card(card: str) -> dict:
     """Phase 11: every golden stream encoded in parity precision on the card
-    (cuFFT MDCT, f64 cuBLAS psy, the f64 allocation loops on CUDA tensors)
+    (the MDCT's forward FFT on the host in numpy, its inverse on cuFFT, f64
+    cuBLAS psy, the f64 allocation loops on CUDA tensors)
     against goldens/streams.json. A mismatch is also encoded on the CPU,
     and the first block that differs is printed."""
     import hashlib
@@ -3456,6 +3532,7 @@ def main(argv=None) -> int:
                           "vbr-huffman": (snrs_v, sum(len(s_) for s_ in streams_v))},
                   card)
     phase_parity_on_card(card)
+    phase_zero_line_parity(card)
     st = phase_stream(card)
     co = phase_corpus(card)
     me = phase_mesh(x, card)

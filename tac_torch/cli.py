@@ -81,6 +81,7 @@ def _parser() -> argparse.ArgumentParser:
     pe.add_argument("input")
     pe.add_argument("output")
     _add_config_flags(pe)
+    pe.add_argument("-v", "--verbose", action="store_true")
     pe.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler trace (Chrome / Perfetto "
                          "JSON) to DIR")

@@ -5,9 +5,9 @@ inverse scale 2.
 
   * ``mdct_direct``/``imdct_direct`` — O(N^2) definitional forms (tests);
   * ``mdct_fft``/``imdct_fft`` — pre/post-twiddle FFT forms, the parity
-    path (f64);
+    path (f64; the forward FFT is numpy's, as tac's and the oracle's);
   * ``mdct_basis``/``imdct_basis`` — host-built window-fused bases: the
-    fast path's MDCT is one ``[F, N] @ [N, H]`` matmul (cuBLAS on the card);
+    fast path's MDCT is one ``[F, N] @ [N, H]`` matmul (K6 on the card);
   * ``frame_signal``/``overlap_add`` — 50%-hop framing and its adjoint.
 """
 
@@ -57,8 +57,14 @@ def mdct_fft(x: torch.Tensor, h: int) -> torch.Tensor:
     """FFT-form MDCT. x: [..., 2h] (windowed) → [..., h]."""
     n = 2 * h
     pre_f, post_f, _, _ = _twiddles(h, x.dtype, x.device)
-    X = torch.fft.fft(x.to(pre_f.dtype) * pre_f, dim=-1)[..., :h]
-    return (2.0 / n) * (post_f * X).real.to(x.dtype)
+    # numpy's pocketfft on the host, on every device: the FFT of tac's CPU
+    # XLA and of its oracle. Parity is the verification mode, not a speed
+    # path, and its bytes depend on the FFT's rounding: on a line that is
+    # zero in exact arithmetic (DC, Nyquist) the sign of ~1e-18 of noise
+    # is coded, and MKL's or cuFFT's noise is not pocketfft's.
+    z = (x.to(pre_f.dtype) * pre_f).cpu().numpy()
+    X = torch.from_numpy(np.fft.fft(z, axis=-1)[..., :h].astype(z.dtype))
+    return (2.0 / n) * (post_f * X.to(x.device)).real.to(x.dtype)
 
 
 def imdct_fft(X: torch.Tensor, h: int) -> torch.Tensor:

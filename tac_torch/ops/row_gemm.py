@@ -8,10 +8,14 @@ order of each k-sum, by the shape of the whole batch, so a row's lines
 depended on the rows beside it, and at a 1/16-dB grid tie a clip's bytes
 on its batch, its stream push size or its rank. ``row_matmul`` computes
 ``a @ b`` so that each output row is a function of its own row of ``a``
-and of ``b`` alone. The CUDA source is tac_torch/csrc/row_gemm.cu (each
-output one chain of fused multiply-adds in k order, f32 on the CUDA
-cores). ``row_matmul_plain`` is the plain version, what the wrapper runs
-for tensors on the CPU: one identical library call per row.
+and of ``b`` alone. The CUDA source is tac_torch/csrc/row_gemm.cu: each
+output one chain of fused multiply-adds in k order, f32 on the CUDA cores,
+in a tile chosen by N alone (``tile``). The tensor cores are left out: a
+split-TF32 ``wgmma`` route was row-invariant on the card but moved the fast
+encodes of pure tones by more than the 0.1 dB that chip_smoke.py allows
+against parity (the source's header says more). ``row_matmul_plain`` is
+the plain version, what the wrapper runs for tensors on the CPU: one
+identical library call per row.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 
 from tac_torch import _build
 
-MAX_ROWS = 65535 * 128        # the kernel's grid: 128-row tiles along y
+MAX_ROWS = 2 ** 31 - 1 - 128  # the kernel's int row index
 
 
 def row_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -50,6 +54,16 @@ def _lib():
     return _build.entry("row_gemm", "tac_row_gemm",
                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                         + [ctypes.c_void_p])
+
+
+def tile(k: int, n: int) -> tuple:
+    """(BM, BN), the kernel's output tile for a [K, N] product
+    (csrc/row_gemm.cu): a function of the basis' shape alone, never of the
+    number of rows, so that a 2 048-row launch has 128 blocks at every
+    product shape of the presets."""
+    code = _build.entry("row_gemm", "tac_row_gemm_tile",
+                        [ctypes.c_int] * 2)(k, n)
+    return divmod(code, 1000)
 
 
 def row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

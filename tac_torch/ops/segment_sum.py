@@ -36,9 +36,14 @@ def segment_sums_plain(x: torch.Tensor, ranges) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _bounds(ranges: tuple):
-    """The kernel's host bound table: the starts, then the ends."""
-    flat = [s for s, _ in ranges] + [e for _, e in ranges]
+def _bounds(ranges: tuple, length: int):
+    """The kernel's host bound table for segments of rows of `length`: the
+    starts, then the ends; raises on a table the kernel does not take."""
+    if not 0 < len(ranges) <= MAX_SEGMENTS or any(
+            not 0 <= s <= e <= length for s, e in ranges):
+        raise ValueError(f"segment_sums takes 1..{MAX_SEGMENTS} segments "
+                         f"within [0, {length}], got {ranges}")
+    flat = [int(s) for s, _ in ranges] + [int(e) for _, e in ranges]
     return (ctypes.c_int * len(flat))(*flat)
 
 
@@ -65,16 +70,13 @@ def segment_sums(x: torch.Tensor, ranges) -> torch.Tensor:
                          f"got {x.dtype} {tuple(x.shape)}")
     ranges = tuple((int(s), int(e)) for s, e in ranges)
     length = x.shape[-1]
-    if not 0 < len(ranges) <= MAX_SEGMENTS or any(
-            not 0 <= s <= e <= length for s, e in ranges):
-        raise ValueError(f"segment_sums takes 1..{MAX_SEGMENTS} segments "
-                         f"within [0, {length}], got {ranges}")
+    bounds = _bounds(ranges, length)
     x2 = x.reshape(-1, length).contiguous()
     rows = x2.shape[0]
     out = torch.empty((rows, len(ranges)), dtype=torch.float32, device=x.device)
     if rows:
         err = launch(x2.data_ptr(), out.data_ptr(), rows, length, len(ranges),
-                     ctypes.cast(_bounds(ranges), ctypes.c_void_p),
+                     ctypes.cast(bounds, ctypes.c_void_p),
                      x.device.index or 0,
                      torch.cuda.current_stream(x.device).cuda_stream)
         if err:

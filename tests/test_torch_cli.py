@@ -109,6 +109,18 @@ def test_encode_profile_writes_a_trace(wavs, tmp_path, capsys):
         read_wav(wavs["mono"])[0], PRESETS["mono16-64"], device="cpu")
 
 
+@pytest.mark.parametrize("flag", ["-v", "--verbose"])
+def test_encode_takes_tacs_verbose_flag(wavs, tmp_path, capsys, flag):
+    """tac's encode takes -v / --verbose (tac/cli.py: parsed, read by
+    nothing); the port's takes the same command line, exits 0 and writes
+    the bytes tac's CLI writes for it (parity)."""
+    args = [wavs["mono"], "--preset", "mono16-64", "--precision", "parity"]
+    pac, jpac = str(tmp_path / "o.pac"), str(tmp_path / "j.pac")
+    _run(["encode", args[0], pac, flag, *args[1:], *CPU], capsys)
+    assert jcli.main(["encode", args[0], jpac, flag, *args[1:]]) == 0
+    assert open(pac, "rb").read() == open(jpac, "rb").read()
+
+
 def test_bench_prints_its_keys(wavs, capsys):
     out = _run(["bench", wavs["mono"], "--preset", "mono16-64", *CPU], capsys)
     assert set(out) == {"audio_s", "encode_s", "throughput_x", "kbps",

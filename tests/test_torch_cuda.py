@@ -4,8 +4,8 @@ integers; K5 within 5e-6 of the largest line; K6 within K·2⁻²³·Σ|a||b|;
 K7 equal to its plain version on the CPU), including the constructed
 row where a fused multiply-add would flip a water-fill decision, K6's and
 K7's rows bit for bit across row counts and places, the block-switch
-paths end to end, and fast encodes whose bytes do not depend on the batch
-or the stream's pushes.
+paths end to end, fast encodes whose bytes do not depend on the batch or
+the stream's pushes, and parity bytes on DC / Nyquist equal to the CPU's.
 
 Marked `cuda`; run on a machine with a card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -839,6 +839,36 @@ def test_k6_kernel_equals_plain(dev, k, n):
     assert bool(((got.double() - want.double()).abs() <= scale).all())
 
 
+@pytest.mark.parametrize("k,n", K6_SHAPES)
+def test_k6_kernel_equals_plain_at_one_row(dev, k, n):
+    """K6 at every product shape on a single row (a tile of zeros but one
+    row) and on the same row as row 2 048 of a 2 049-row call (a row tile
+    of its own): within K·2⁻²³·Σ|a||b| of the plain version, and the same
+    bits in both places."""
+    a = _noisy_rows(dev, 2049, k, k + 1)
+    b = torch.as_tensor(np.random.default_rng(n + 1).standard_normal((k, n))
+                        / np.sqrt(k), dtype=torch.float32, device=dev)
+    one = tk6.row_matmul(a[2048:], b)
+    want = tk6.row_matmul_plain(a[2048:], b)
+    scale = (a[2048:].abs().double() @ b.abs().double()) * (k * 2.0 ** -23)
+    assert bool(((one.double() - want.double()).abs() <= scale).all())
+    assert torch.equal(tk6.row_matmul(a, b)[2048:], one)
+
+
+@pytest.mark.parametrize("k,n", K6_SHAPES)
+def test_k6_tile_fills_the_card_at_every_product_shape(dev, k, n):
+    """The tile the built kernel takes for a [K, N] product gives a
+    2 048-row launch (the codec's chunk) 128 blocks at every product shape
+    of the presets; it is asked with no row count, and a one-row call
+    gives the bits of the same row in a 2 048-row call."""
+    bm, bn = tk6.tile(k, n)
+    assert 2048 % bm == 0 and (2048 // bm) * -(-n // bn) == 128, (bm, bn)
+    a = _noisy_rows(dev, 2048, k, k + 2)
+    b = torch.as_tensor(np.random.default_rng(n + 2).standard_normal((k, n))
+                        / np.sqrt(k), dtype=torch.float32, device=dev)
+    assert torch.equal(tk6.row_matmul(a[-1:], b), tk6.row_matmul(a, b)[-1:])
+
+
 def test_k6_rows_invariant(dev):
     """K6's rows are equal bit for bit whatever M (1, 2, 3, 2047, 2048,
     2049, 20 704), the row's place (a permutation) or the leading axes."""
@@ -854,6 +884,10 @@ def test_k6_rows_invariant(dev):
         (256, 128)) / 16, dtype=torch.float32, device=dev)
     assert torch.equal(tk6.row_matmul(sub, short).reshape(-1, 128),
                        tk6.row_matmul(sub.reshape(-1, 256), short))
+    # each row at other places of its tile and of a thread's rows
+    for shift in (1, 5, 63, 64, 65, 127):
+        assert torch.equal(tk6.row_matmul(a[shift:shift + 2048], b),
+                           full[shift:shift + 2048]), shift
 
 
 def test_k7_kernel_equals_plain_and_rows_invariant(dev):
@@ -876,6 +910,51 @@ def test_k7_kernel_equals_plain_and_rows_invariant(dev):
             assert torch.equal(tk7.segment_sums(xd[:m], ranges), got[:m]), m
         perm = torch.randperm(2049, device=dev)
         assert torch.equal(tk7.segment_sums(xd[perm], ranges), got[perm])
+
+
+@pytest.mark.parametrize("case", ["segs_40", "segs_64", "long_rows",
+                                  "long_prefixes", "unaligned_rows"])
+def test_k7_many_segments_and_long_rows(dev, case):
+    """K7 where a lane takes two segments (40, 64), on rows longer than its
+    1 024-float chunk (segments and nested prefixes across chunk edges),
+    and on rows of 1 023 floats (the transient detector's, not 16-byte
+    aligned): equal to its plain version on the CPU bit for bit."""
+    rng = np.random.default_rng(len(case))
+    length = {"long_rows": 5000, "long_prefixes": 5000,
+              "unaligned_rows": 1023}.get(case, 1024)
+    x = (rng.random((777, length)) * np.exp(4 * rng.standard_normal(
+        (777, length)))).astype(np.float32)
+    if case.startswith("segs"):
+        nseg = int(case.split("_")[1])
+        cuts = np.sort(rng.integers(0, length + 1, 2 * nseg)).reshape(nseg, 2)
+        ranges = tuple((int(s), int(e)) for s, e in cuts)
+    elif case == "long_rows":
+        ranges = ((10, 5000), (1000, 1030), (1023, 1025), (0, 0), (2047, 4097))
+    elif case == "long_prefixes":
+        ranges = ((0, 0), (0, 1024), (0, 3000), (0, 3000), (0, 5000))
+    else:
+        ranges = tuple((0, int(e)) for e in
+                       np.round(np.arange(9) * 1022 / 8).astype(int))
+    got = tk7.segment_sums(torch.as_tensor(x, device=dev), ranges)
+    assert torch.equal(got.cpu(), tk7.segment_sums_plain(torch.from_numpy(x),
+                                                         ranges))
+
+
+@pytest.mark.parametrize("preset,n", [("mono16-64", 4096),
+                                      ("vbr-huffman", 8192)])
+def test_zero_line_parity_on_card_equals_cpu(dev, preset, n):
+    """DC and Nyquist (MDCT lines zero in exact arithmetic) in parity on
+    the card: the same bytes as the CPU encode, which
+    tests/test_torch_edge.py holds equal to tac's."""
+    from tac_torch import api
+
+    change = {} if preset == "mono16-64" else {"sample_rate": 16000,
+                                               "n_channels": 1}
+    cfg = PRESETS[preset].replace(precision="parity", **change)
+    for x in (np.full((n, 1), 0.25),
+              (0.25 * np.cos(np.pi * np.arange(n)))[:, None]):
+        assert api.encode_array(x, cfg, device=dev) == \
+            api.encode_array(x, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("family", ["corpus", "vbr-huffman"])
