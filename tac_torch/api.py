@@ -23,6 +23,7 @@ from tac_torch import bands, codec
 from tac_torch import bitstream as bs
 from tac_torch import blockswitch as bsw
 from tac_torch import huffman as hf
+from tac_torch import tracing
 from tac_torch.codec import FrameCode
 from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.dsp.mdct import num_frames
@@ -35,7 +36,8 @@ _B = bands.N_BANDS
 
 def host_array(x) -> np.ndarray:
     """A tensor on any device, or an array, as a numpy array."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return (tracing.to_host(x).numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
 
 
 # ------------------------------------------------------------- serialize ----
@@ -147,32 +149,37 @@ def encode_array(x: np.ndarray, cfg: CodecConfig, device=None) -> bytes:
             raise ValueError(
                 f"stereo_mode='ms' requires even channel count, got {c}")
         cfg = cfg.replace(n_channels=c)
-    words, nbits = packed_encoder(cfg)(x.T, cfg, device)
-    return stream_header(cfg, t) + words_to_stream(words, nbits)
+    with tracing.span("tac.encode"):
+        words, nbits = packed_encoder(cfg)(x.T, cfg, device)
+        return stream_header(cfg, t) + words_to_stream(words, nbits)
 
 
 def words_to_stream(words, nbits) -> bytes:
     """Payload words int32 [C, F, W32] and bit counts [C, F] (tensors) → the
     u16-prefixed block stream, block-major and channel-minor ([F, C])."""
-    w = words.cpu().numpy().view(np.uint32).swapaxes(0, 1)
-    return rows_to_stream(w, nbits.cpu().numpy().swapaxes(0, 1))
+    with tracing.span("tac.api.serialize"):
+        w = tracing.to_host(words).numpy().view(np.uint32).swapaxes(0, 1)
+        return rows_to_stream(w, tracing.to_host(nbits).numpy().swapaxes(0, 1))
 
 
 def stream_header(cfg: CodecConfig, num_samples: int) -> bytes:
     """The PAC-T header of a stream of `cfg` (SPEC.md §7)."""
     h = cfg.n_mdct_lines
     bsw_on = cfg.use_block_switch
-    return bs.write_header(bs.PacHeader(
-        sample_rate=cfg.sample_rate, n_channels=cfg.n_channels,
-        num_samples=num_samples, bitrate_bps=cfg.bitrate_bps, n_mdct_lines=h,
-        n_mdct_lines_short=cfg.n_mdct_lines_short if bsw_on else 0,
-        n_scale_bits=cfg.n_scale_bits, n_mant_size_bits=cfg.n_mant_size_bits,
-        n_lines_long=bands.lines_per_band(cfg.sample_rate, h),
-        n_lines_short=(bands.lines_per_band(cfg.sample_rate,
-                                            cfg.n_mdct_lines_short)
-                       if bsw_on else None),
-        huffman=cfg.use_huffman, blockswitch=bsw_on,
-        ms=cfg.stereo_mode == "ms"))
+    with tracing.span("tac.api.serialize"):
+        return bs.write_header(bs.PacHeader(
+            sample_rate=cfg.sample_rate, n_channels=cfg.n_channels,
+            num_samples=num_samples, bitrate_bps=cfg.bitrate_bps,
+            n_mdct_lines=h,
+            n_mdct_lines_short=cfg.n_mdct_lines_short if bsw_on else 0,
+            n_scale_bits=cfg.n_scale_bits,
+            n_mant_size_bits=cfg.n_mant_size_bits,
+            n_lines_long=bands.lines_per_band(cfg.sample_rate, h),
+            n_lines_short=(bands.lines_per_band(cfg.sample_rate,
+                                                cfg.n_mdct_lines_short)
+                           if bsw_on else None),
+            huffman=cfg.use_huffman, blockswitch=bsw_on,
+            ms=cfg.stereo_mode == "ms"))
 
 
 def header_config(hdr: bs.PacHeader, precision: str = "fast") -> CodecConfig:
@@ -221,7 +228,7 @@ def decode_array(data: bytes, precision: str = "parity", device=None
     cfg = header_config(hdr, precision)
     f = num_frames(hdr.num_samples, hdr.n_mdct_lines)
     x = _decode_blocks(data, off, hdr, cfg, 0, f, hdr.num_samples, device)
-    return x.cpu().numpy().T.astype(np.float32), hdr.sample_rate
+    return tracing.to_host(x).numpy().T.astype(np.float32), hdr.sample_rate
 
 
 def decode_range(data: bytes, start: int, stop: int, precision: str = "fast",
@@ -247,7 +254,7 @@ def decode_range(data: bytes, start: int, stop: int, precision: str = "fast",
     fb = min(num_frames(hdr.num_samples, h), (stop - 1) // h + 2)
     x = _decode_blocks(data, off, hdr, cfg, fa, fb, stop - fa * h, device)
     out = x[..., start - fa * h:]
-    return out.cpu().numpy().T.astype(np.float32), hdr.sample_rate
+    return tracing.to_host(out).numpy().T.astype(np.float32), hdr.sample_rate
 
 
 def encode(wav_path: str, pac_path: str, cfg: CodecConfig, device=None) -> dict:

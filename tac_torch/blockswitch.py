@@ -34,6 +34,7 @@ from tac_torch import bands, codec, consts
 from tac_torch import bitstream as bs
 from tac_torch import bitalloc as ba
 from tac_torch import psy as psy_mod
+from tac_torch import tracing
 from tac_torch.codec import FrameCode
 from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.consts import CodecConsts, PsyConsts
@@ -217,25 +218,28 @@ def analyze_frame_bs(frames: torch.Tensor, state: torch.Tensor,
     [R, K*Hs], short smr [R, B])."""
     r = frames.shape[0]
     st = state.long()
-    xw = frames * c.state_windows[st]
-    if cfg.precision == "parity":
-        lines_l = fb.mdct_fft(xw, cfg.n_mdct_lines)
-    else:
-        lines_l = k6.row_matmul(xw, c.fwd_long)
-    sub = frames[:, c.sub_idx]                           # [R, K, 2Hs]
-    if cfg.precision == "parity":
-        lines_s = fb.mdct_fft(sub * c.short_window, cfg.n_mdct_lines_short)
-    else:
-        lines_s = k6.row_matmul(sub, c.fwd_short)
-    if cfg.use_psy:
-        smr_l = psy_mod.calc_smrs(frames, lines_l, c.cl.psy,
-                                  mdct_gain=c.state_gain[st])
-        # the group shares one allocation: each band's worst sub-block
-        smr_s = psy_mod.calc_smrs(sub, lines_s, c.psy_short).amax(-2)
-    else:
-        smr_l = torch.zeros((r, bands.N_BANDS), dtype=c.cl.dtype,
-                            device=frames.device)
-        smr_s = torch.zeros_like(smr_l)
+    with tracing.span("tac.codec.analysis"):
+        xw = frames * c.state_windows[st]
+        if cfg.precision == "parity":
+            lines_l = fb.mdct_fft(xw, cfg.n_mdct_lines)
+        else:
+            lines_l = k6.row_matmul(xw, c.fwd_long)
+        sub = frames[:, c.sub_idx]                       # [R, K, 2Hs]
+        if cfg.precision == "parity":
+            lines_s = fb.mdct_fft(sub * c.short_window,
+                                  cfg.n_mdct_lines_short)
+        else:
+            lines_s = k6.row_matmul(sub, c.fwd_short)
+    with tracing.span("tac.codec.psy"):
+        if cfg.use_psy:
+            smr_l = psy_mod.calc_smrs(frames, lines_l, c.cl.psy,
+                                      mdct_gain=c.state_gain[st])
+            # the group shares one allocation: each band's worst sub-block
+            smr_s = psy_mod.calc_smrs(sub, lines_s, c.psy_short).amax(-2)
+        else:
+            smr_l = torch.zeros((r, bands.N_BANDS), dtype=c.cl.dtype,
+                                device=frames.device)
+            smr_s = torch.zeros_like(smr_l)
     return lines_l, smr_l, lines_s.reshape(r, -1), smr_s
 
 
@@ -258,10 +262,11 @@ def quantize_both(lines_l, lines_s, alloc, state, cfg: CodecConfig,
                   c: BsConsts) -> BsFrameCode:
     """Quantize both encodings at one allocation [R, B] (the state-selected
     encoding's; the other is never serialised)."""
-    return BsFrameCode(
-        state=state.to(torch.int32),
-        long=codec.quantize_given_alloc(lines_l, alloc, cfg, c.cl),
-        short=codec.quantize_given_alloc(lines_s, alloc, cfg, c.cg))
+    with tracing.span("tac.codec.quant"):
+        return BsFrameCode(
+            state=state.to(torch.int32),
+            long=codec.quantize_given_alloc(lines_l, alloc, cfg, c.cl),
+            short=codec.quantize_given_alloc(lines_s, alloc, cfg, c.cg))
 
 
 def encode_frame_bs(frames: torch.Tensor, state: torch.Tensor,
@@ -406,7 +411,8 @@ def encode_frames_bs(frames, states, cfg: CodecConfig, c: BsConsts):
     for fr, st in zip(frames.reshape(-1, frames.shape[-1]).split(chunk),
                       states.reshape(-1).split(chunk)):
         bc = encode_frame_bs(fr, st, cfg, c)
-        w, n = pack_rows(*payload_fields_bs(bc, cfg, c), cap)
+        with tracing.span("tac.codec.pack"):
+            w, n = pack_rows(*payload_fields_bs(bc, cfg, c), cap)
         words.append(w)
         nbits.append(n)
     words = torch.cat(words).reshape(*lead, -1)
@@ -423,7 +429,9 @@ def encode_clip_bs_packed(x, cfg: CodecConfig, device=None):
     nbits int64 [..., C, F])."""
     dev = resolve_device(device)
     c = make_bs_consts(cfg, dev)
-    return encode_frames_bs(*_frames_and_states(x, cfg, c, dev), cfg, c)
+    with tracing.span("tac.codec.analysis"):
+        frames, states = _frames_and_states(x, cfg, c, dev)
+    return encode_frames_bs(frames, states, cfg, c)
 
 
 def _bs_code(state, ovs, alloc_code, sf, mant) -> BsFrameCode:
@@ -451,7 +459,7 @@ def decode_frames_bs(words, cfg: CodecConfig, c: BsConsts):
 
 
 def _decode_frames(words, cfg: CodecConfig, c: BsConsts, unpack):
-    w = torch.as_tensor(words).to(c.cl.window.device)
+    w = tracing.upload(words, c.cl.window.device)
     bc = unpack(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
     return decode_frame_bs(bc, cfg, c).reshape(*w.shape[:-1], -1)
 
@@ -471,7 +479,7 @@ def encode_clip_bs(x, cfg: CodecConfig, device=None) -> BsFrameCode:
     path allocates only that one, ``encode_frame_bs``)."""
     dev = resolve_device(device)
     c = make_bs_consts(cfg, dev)
-    xt = torch.as_tensor(x).to(dev).to(c.cl.dtype)
+    xt = tracing.upload(x, dev).to(c.cl.dtype)
     frames = fb.frame_signal(xt, cfg.n_mdct_lines)
     states = window_states(transient_flags(xt, cfg), frames.shape[-2])
 
@@ -572,7 +580,8 @@ def _encode_bs_vbr_lanes_to_words(frames, states, res0, cfg: CodecConfig,
     words, nbits = [], []
     for l1, l2, al, td, st in zip(*(r.split(codec.ENC_CHUNK) for r in rows)):
         bc = quantize_both(l1, l2, al, st, cfg, c)
-        w, n = pack_rows(*payload_fields_bs_vbr(bc, td, cfg, c), cap)
+        with tracing.span("tac.codec.pack"):
+            w, n = pack_rows(*payload_fields_bs_vbr(bc, td, cfg, c), cap)
         words.append(w)
         nbits.append(n)
     return (torch.cat(words).reshape(lanes, f, k, -1),
@@ -598,7 +607,8 @@ def encode_clip_bs_vbr_packed(x, cfg: CodecConfig, device=None):
     from fill 0."""
     dev = resolve_device(device)
     c = make_bs_consts(cfg, dev)
-    frames, states = _frames_and_states(x, cfg, c, dev)
+    with tracing.span("tac.codec.analysis"):
+        frames, states = _frames_and_states(x, cfg, c, dev)
     res0 = torch.zeros(codec.n_lanes(frames.shape[:-2], cfg),
                        dtype=torch.int32, device=dev)
     return encode_frames_bs_vbr(frames, states, res0, cfg, c)[:2]
@@ -619,10 +629,11 @@ def ms_stream_prep(prior, look, halves, t_hist, cfg: CodecConfig,
     [C, m], a pair's two channels sharing the state of their OR-ed flags;
     t bool [L, m+3] = (t_{e-2}, ..., t_{e+m}), whose columns m and m+1 are
     the next t_hist)."""
-    dev, dt = c.cl.window.device, c.cl.dtype
-    seq = torch.cat([torch.as_tensor(prior)[:, None],
-                     torch.as_tensor(look)[:, None], torch.as_tensor(halves)],
-                    dim=1).to(dt).to(dev)                # [C, m+2, H]
+    dev = c.cl.window.device
+    seq = tracing.upload(torch.cat([torch.as_tensor(prior)[:, None],
+                                    torch.as_tensor(look)[:, None],
+                                    torch.as_tensor(halves)],
+                                   dim=1).to(c.cl.dtype), dev)  # [C, m+2, H]
     ch, m = seq.shape[0], seq.shape[1] - 2
     ms = cfg.stereo_mode == "ms"
     if ms:
@@ -631,7 +642,7 @@ def ms_stream_prep(prior, look, halves, t_hist, cfg: CodecConfig,
     flags = transient_flags(seq[:, 1:].reshape(ch, -1), cfg)   # t_{e..e+m}
     if ms:
         flags = flags[0::2] | flags[1::2]
-    t = torch.cat([torch.as_tensor(t_hist, device=dev), flags], dim=1)
+    t = torch.cat([tracing.upload(t_hist, dev), flags], dim=1)
     states = stream_states(t, m)
     return frames, (states.repeat_interleave(2, dim=0) if ms else states), t
 
@@ -642,7 +653,8 @@ def encode_frames_bs_packed(prior, look, halves, t_hist, cfg: CodecConfig,
     _encode_frames_bs_packed and its M/S form): one frame per new half, the
     lookahead as in ``ms_stream_prep`` → (words int32 [C, m, W32], nbits
     int64 [C, m], t bool [L, m+3])."""
-    frames, states, t = ms_stream_prep(prior, look, halves, t_hist, cfg, c)
+    with tracing.span("tac.codec.analysis"):
+        frames, states, t = ms_stream_prep(prior, look, halves, t_hist, cfg, c)
     return (*encode_frames_bs(frames, states, cfg, c), t)
 
 
@@ -652,7 +664,8 @@ def encode_frames_bs_vbr_packed(prior, look, halves, t_hist, res0,
     _encode_frames_bs_vbr_packed and its M/S form): as
     ``encode_frames_bs_packed``, plus the carried fills res0 int32 [L] →
     (words, nbits, t, res int32 [L, m])."""
-    frames, states, t = ms_stream_prep(prior, look, halves, t_hist, cfg, c)
+    with tracing.span("tac.codec.analysis"):
+        frames, states, t = ms_stream_prep(prior, look, halves, t_hist, cfg, c)
     words, nbits, ress = encode_frames_bs_vbr(frames, states, res0, cfg, c)
     return words, nbits, t, ress
 

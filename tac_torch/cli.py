@@ -84,7 +84,7 @@ def _parser() -> argparse.ArgumentParser:
     pe.add_argument("-v", "--verbose", action="store_true")
     pe.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler trace (Chrome / Perfetto "
-                         "JSON) to DIR")
+                         "JSON) to DIR, with the program's tac.* spans")
 
     pd = sub.add_parser("decode", help="PAC-T → WAV")
     pd.add_argument("input")
@@ -156,10 +156,17 @@ def main(argv=None) -> int:
 
             from torch.profiler import ProfilerActivity, profile
 
+            from tac_torch import tracing
+
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-            with profile(activities=acts) as prof:
-                stats = api.encode(args.input, args.output, cfg, dev)
+            # the program's tac.* ranges over the kernels they launch
+            was = tracing.enable(True)
+            try:
+                with profile(activities=acts) as prof:
+                    stats = api.encode(args.input, args.output, cfg, dev)
+            finally:
+                tracing.enable(was)
             os.makedirs(args.profile, exist_ok=True)
             prof.export_chrome_trace(os.path.join(args.profile,
                                                   "encode_trace.json"))

@@ -42,6 +42,7 @@ from tac_torch import bitalloc as ba
 from tac_torch import consts
 from tac_torch import huffman as hf
 from tac_torch import psy as psy_mod
+from tac_torch import tracing
 from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.consts import CodecConsts, frame_budget  # noqa: F401
 from tac_torch.dsp import mdct as fb
@@ -120,11 +121,13 @@ def _smr_input(frames, lines, cfg: CodecConfig, c: CodecConsts):
 
 def analyze_frame(frames: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
     """frames [..., N] (unwindowed) → (mdct lines [..., H], smr [..., B])."""
-    if cfg.precision == "parity":
-        lines = fb.mdct_fft(frames * c.window, c.window.shape[0] // 2)
-    else:
-        lines = k6.row_matmul(frames, c.fwd_basis)   # row-invariant (K6)
-    return lines, _smr_input(frames, lines, cfg, c)
+    with tracing.span("tac.codec.analysis"):
+        if cfg.precision == "parity":
+            lines = fb.mdct_fft(frames * c.window, c.window.shape[0] // 2)
+        else:
+            lines = k6.row_matmul(frames, c.fwd_basis)   # row-invariant (K6)
+    with tracing.span("tac.codec.psy"):
+        return lines, _smr_input(frames, lines, cfg, c)
 
 
 def water_fill_alloc(smr: torch.Tensor, n_lines: torch.Tensor, budget: int,
@@ -166,9 +169,10 @@ def allocate_rows(smr: torch.Tensor, cfg: CodecConfig, c: CodecConsts,
     maps): per row, or under M/S jointly per pair of adjacent rows (mid,
     side) at 2·budget."""
     nl = c.n_lines if n_lines is None else n_lines
-    if cfg.stereo_mode == "ms":
-        return joint_alloc_pair_rows(smr, nl, c.budget, cfg)
-    return water_fill_alloc(smr, nl, c.budget, cfg)
+    with tracing.span("tac.codec.alloc"):
+        if cfg.stereo_mode == "ms":
+            return joint_alloc_pair_rows(smr, nl, c.budget, cfg)
+        return water_fill_alloc(smr, nl, c.budget, cfg)
 
 
 def quantize_given_alloc(lines: torch.Tensor, alloc: torch.Tensor,
@@ -256,8 +260,12 @@ def _encode_rows_to_words(frames: torch.Tensor, cfg: CodecConfig,
     words, nbits = [], []
     for fc in frames.split(even_chunk(cfg)):
         lines, smr = analyze_frame(fc, cfg, c)
-        code = quantize_given_alloc(lines, allocate_rows(smr, cfg, c), cfg, c)
-        w, n = pack_rows(*payload_fields(code, cfg, c), cap)
+        alloc = allocate_rows(smr, cfg, c)
+        with tracing.span("tac.codec.quant"):
+            code = quantize_given_alloc(lines, alloc, cfg, c)
+        del alloc                      # not held through the pack
+        with tracing.span("tac.codec.pack"):
+            w, n = pack_rows(*payload_fields(code, cfg, c), cap)
         words.append(w)
         nbits.append(n)
     return torch.cat(words), torch.cat(nbits)
@@ -266,7 +274,7 @@ def _encode_rows_to_words(frames: torch.Tensor, cfg: CodecConfig,
 def input_signal(x, cfg: CodecConfig, dtype, dev) -> torch.Tensor:
     """x [..., C, T] on `dev` in the codec's float type, butterflied to
     M/S per channel pair when the stream is mid/side."""
-    xt = torch.as_tensor(x).to(dev).to(dtype)
+    xt = tracing.upload(x, dev).to(dtype)
     return ms_forward(xt) if cfg.stereo_mode == "ms" else xt
 
 
@@ -294,8 +302,9 @@ def encode_clip_packed(x, cfg: CodecConfig, device=None):
     unless named)."""
     dev = resolve_device(device)
     c = make_consts(cfg, dev)
-    frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
-                             cfg.n_mdct_lines)
+    with tracing.span("tac.codec.analysis"):
+        frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
+                                 cfg.n_mdct_lines)
     return encode_frames_packed(frames, cfg, c)
 
 
@@ -315,7 +324,7 @@ def encode_clip(x, cfg: CodecConfig, device=None) -> FrameCode:
     chunks of ENC_CHUNK."""
     dev = resolve_device(device)
     c = make_consts(cfg, dev)
-    frames = fb.frame_signal(torch.as_tensor(x).to(dev).to(c.dtype),
+    frames = fb.frame_signal(tracing.upload(x, dev).to(c.dtype),
                              cfg.n_mdct_lines)
     parts = []
     for fc in frames.reshape(-1, frames.shape[-1]).split(ENC_CHUNK):
@@ -341,10 +350,10 @@ def frames_from_halves(prior, halves, cfg: CodecConfig, c: CodecConsts):
     f[C, m, N] on c's device in the codec's float type, frame j =
     [h_{j-1} | h_j], butterflied per channel pair under M/S (per sample,
     so it commutes with framing: the offline frames of the same samples)."""
-    dev = c.window.device
-    seq = torch.cat([torch.as_tensor(prior)[:, None], torch.as_tensor(halves)],
-                    dim=1).to(c.dtype).to(dev)     # [C, m+1, H]
-    if cfg.stereo_mode == "ms":
+    seq = tracing.upload(torch.cat([torch.as_tensor(prior)[:, None],
+                                    torch.as_tensor(halves)],
+                                   dim=1).to(c.dtype), c.window.device)
+    if cfg.stereo_mode == "ms":                     # seq [C, m+1, H]
         seq = ms_forward(seq.reshape(seq.shape[0], -1)).reshape(seq.shape)
     return torch.cat([seq[:, :-1], seq[:, 1:]], dim=-1)
 
@@ -354,8 +363,9 @@ def encode_frames_packed_halves(prior, halves, cfg: CodecConfig,
     """Streaming fixed-rate core (tac/codec.py:_encode_frames_packed_halves
     and its M/S form): (prior [C, H], halves [C, m, H]) → (words int32
     [C, m, W32], nbits int64 [C, m]), through the offline row path."""
-    return encode_frames_packed(frames_from_halves(prior, halves, cfg, c),
-                                cfg, c)
+    with tracing.span("tac.codec.analysis"):
+        frames = frames_from_halves(prior, halves, cfg, c)
+    return encode_frames_packed(frames, cfg, c)
 
 
 def read_head(wf: torch.Tensor, cfg: CodecConfig, pre: tuple):
@@ -368,7 +378,8 @@ def read_head(wf: torch.Tensor, cfg: CodecConfig, pre: tuple):
     s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
     nb = bands.N_BANDS
     k = wf.shape[0]
-    wid = torch.tensor([*pre] + [a] * nb, dtype=torch.int64, device=wf.device)
+    wid = tracing.upload(torch.tensor([*pre] + [a] * nb, dtype=torch.int64),
+                         wf.device)
     off = torch.cumsum(wid, 0) - wid
     head = read_fields(wf, off.expand(k, -1), wid.expand(k, -1))
     alloc_code = head[:, len(pre):]
@@ -399,7 +410,7 @@ def _unpack_raw_fields(wf: torch.Tensor, cfg: CodecConfig,
 def decode_frames_packed(words, cfg: CodecConfig, c: CodecConsts):
     """words: int32 [..., W32] payload rows (32-bit patterns) → [..., N]
     windowed frame audio, before the overlap-add."""
-    w = torch.as_tensor(words).to(c.window.device)
+    w = tracing.upload(words, c.window.device)
     code = _unpack_raw_fields(w.reshape(-1, w.shape[-1]), cfg, c)
     return decode_frame(code, cfg, c).reshape(*w.shape[:-1], -1)
 
@@ -620,8 +631,10 @@ def _vbr_pack_rows(lines, alloc_rows, tid_rows, cfg: CodecConfig,
     words, nbits = [], []
     for ln, al, td in zip(lines.split(ENC_CHUNK), alloc_rows.split(ENC_CHUNK),
                           tid_rows.split(ENC_CHUNK)):
-        code = quantize_given_alloc(ln, al, cfg, c)
-        w, n = pack_rows(*payload_fields_vbr(code, td, cfg, c), cap)
+        with tracing.span("tac.codec.quant"):
+            code = quantize_given_alloc(ln, al, cfg, c)
+        with tracing.span("tac.codec.pack"):
+            w, n = pack_rows(*payload_fields_vbr(code, td, cfg, c), cap)
         words.append(w)
         nbits.append(n)
     return torch.cat(words), torch.cat(nbits)
@@ -667,8 +680,9 @@ def encode_clip_vbr_packed(x, cfg: CodecConfig, device=None):
     encode."""
     dev = resolve_device(device)
     c = make_consts(cfg, dev)
-    frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
-                             cfg.n_mdct_lines)
+    with tracing.span("tac.codec.analysis"):
+        frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
+                                 cfg.n_mdct_lines)
     res0 = torch.zeros(n_lanes(frames.shape[:-2], cfg), dtype=torch.int32,
                        device=dev)
     return encode_frames_vbr_packed(frames, res0, cfg, c)[:2]
@@ -680,8 +694,9 @@ def encode_frames_vbr_packed_halves(prior, halves, res0, cfg: CodecConfig,
     M/S form): (prior [C, H], halves [C, m, H], the carried fills res0
     int32 [L] of the C channels' or C/2 pairs' lanes) → (words int32
     [C, m, W32], nbits int64 [C, m], res int32 [L, m])."""
-    return encode_frames_vbr_packed(frames_from_halves(prior, halves, cfg, c),
-                                    res0, cfg, c)
+    with tracing.span("tac.codec.analysis"):
+        frames = frames_from_halves(prior, halves, cfg, c)
+    return encode_frames_vbr_packed(frames, res0, cfg, c)
 
 
 def _vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
@@ -710,7 +725,7 @@ def _unpack_vbr_fields(wf: torch.Tensor, cfg: CodecConfig,
 def decode_frames_vbr(words, cfg: CodecConfig, c: CodecConsts):
     """words: int32 [..., W32] VBR payload rows → [..., N] windowed frame
     audio, before the overlap-add."""
-    w = torch.as_tensor(words).to(c.window.device)
+    w = tracing.upload(words, c.window.device)
     code = _unpack_vbr_fields(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
     return decode_frame(code, cfg, c).reshape(*w.shape[:-1], -1)
 

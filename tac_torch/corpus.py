@@ -41,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tac_torch import api, parallel, tuning
+from tac_torch import api, parallel, tracing, tuning
 from tac_torch import bitstream as bs
 from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.dsp.mdct import num_frames
@@ -226,8 +226,8 @@ class CorpusTranscoder(_Job):
         else:
             words, nbits = parallel.encode_batch_packed(batch, cfg,
                                                         self.device)
-        w_np = words.cpu().numpy().view(np.uint32)
-        n_np = nbits.cpu().numpy()
+        w_np = tracing.to_host(words).numpy().view(np.uint32)
+        n_np = tracing.to_host(nbits).numpy()
         out = []
         for i, c in enumerate(clips):
             f = num_frames(c.shape[0], h)
@@ -346,7 +346,7 @@ class CorpusDecoder(_Job):
         else:
             y = parallel.decode_batch_packed(words.view(np.int32), cfg, t,
                                              pcm16=True, device=self.device)
-        y = y.cpu().numpy()
+        y = tracing.to_host(y).numpy()
         return [np.ascontiguousarray(y[i, :, :hdr.num_samples].T)
                 for i, (hdr, _, _) in enumerate(staged)]
 

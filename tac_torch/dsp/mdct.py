@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from tac_torch import tracing
+
 
 def _cos_table(h: int, inverse: bool, dtype, device) -> torch.Tensor:
     n = 2 * h
@@ -62,9 +64,9 @@ def mdct_fft(x: torch.Tensor, h: int) -> torch.Tensor:
     # path, and its bytes depend on the FFT's rounding: on a line that is
     # zero in exact arithmetic (DC, Nyquist) the sign of ~1e-18 of noise
     # is coded, and MKL's or cuFFT's noise is not pocketfft's.
-    z = (x.to(pre_f.dtype) * pre_f).cpu().numpy()
-    X = torch.from_numpy(np.fft.fft(z, axis=-1)[..., :h].astype(z.dtype))
-    return (2.0 / n) * (post_f * X.to(x.device)).real.to(x.dtype)
+    z = tracing.to_host(x.to(pre_f.dtype) * pre_f).numpy()
+    X = np.fft.fft(z, axis=-1)[..., :h].astype(z.dtype)
+    return (2.0 / n) * (post_f * tracing.upload(X, x.device)).real.to(x.dtype)
 
 
 def imdct_fft(X: torch.Tensor, h: int) -> torch.Tensor:

@@ -42,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from tac_torch import blockswitch as bsw
-from tac_torch import codec
+from tac_torch import codec, tracing
 from tac_torch.codec import FrameCode
 from tac_torch.config import CodecConfig, resolve_device
 
@@ -78,7 +78,8 @@ def encode_batch_packed(x, cfg: CodecConfig, device=None):
     """Batched packed encode on `device` (CUDA unless named). x: float
     [B, C, T] → (words int32 [B, C, F, W32] holding 32-bit patterns, nbits
     int64 [B, C, F])."""
-    return packed_encoder(cfg)(x, cfg, device)
+    with tracing.span("tac.encode"):
+        return packed_encoder(cfg)(x, cfg, device)
 
 
 def to_pcm16(y: torch.Tensor) -> torch.Tensor:

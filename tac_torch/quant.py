@@ -12,9 +12,15 @@ from __future__ import annotations
 
 import torch
 
+from tac_torch import tracing
+
 
 def _i64(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int64, device=like.device)
+    """x (an int or an int tensor) as int64 on like's device; an int is
+    uploaded."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.int64)
+    return tracing.upload(torch.tensor(x, dtype=torch.int64), like.device)
 
 
 def _quantize(a: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

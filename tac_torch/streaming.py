@@ -34,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tac_torch import api, codec
+from tac_torch import api, codec, tracing
 from tac_torch import blockswitch as bsw
 from tac_torch.bitstream import read_header
 from tac_torch.config import CodecConfig, resolve_device
@@ -107,36 +107,41 @@ class StreamEncoder:
     def push(self, x: np.ndarray) -> bytes:
         """x: float[T'] or [T', C] new samples → the payload bytes of every
         frame they complete."""
-        x = np.asarray(x, np.float64)
-        if x.ndim == 1:
-            x = x[:, None]
-        st = self.state
-        h = self.cfg.n_mdct_lines
-        buf = np.concatenate([st.pending, x.T], axis=1)
-        c, total = buf.shape
-        m = total // h
-        st.pending = buf[:, m * h:]
-        if m == 0:
-            return b""
-        return self._emit(
-            np.ascontiguousarray(buf[:, :m * h].reshape(c, m, h)))
+        with tracing.span("tac.stream.enc.push"):
+            with tracing.span("tac.stream.enc.frame"):
+                x = np.asarray(x, np.float64)
+                if x.ndim == 1:
+                    x = x[:, None]
+                st = self.state
+                h = self.cfg.n_mdct_lines
+                buf = np.concatenate([st.pending, x.T], axis=1)
+                c, total = buf.shape
+                m = total // h
+                st.pending = buf[:, m * h:]
+                if m == 0:
+                    return b""
+                halves = np.ascontiguousarray(buf[:, :m * h].reshape(c, m, h))
+            return self._emit(halves)
 
     def flush(self) -> bytes:
         """The last frames: the pending samples zero-padded to a half, the
         flush half and, under block switching, one more to drain the
         lookahead."""
-        st = self.state
-        c, p = st.pending.shape
-        h = self.cfg.n_mdct_lines
-        tail = []
-        if p > 0:
-            tail.append(np.concatenate(
-                [st.pending, np.zeros((c, h - p))], axis=1)[:, None, :])
-            st.pending = st.pending[:, :0]
-        tail.append(np.zeros((c, 1, h)))
-        if self.cfg.use_block_switch:
-            tail.append(np.zeros((c, 1, h)))
-        return self._emit(np.concatenate(tail, axis=1))
+        with tracing.span("tac.stream.enc.push"):
+            with tracing.span("tac.stream.enc.frame"):
+                st = self.state
+                c, p = st.pending.shape
+                h = self.cfg.n_mdct_lines
+                tail = []
+                if p > 0:
+                    tail.append(np.concatenate(
+                        [st.pending, np.zeros((c, h - p))], axis=1)[:, None, :])
+                    st.pending = st.pending[:, :0]
+                tail.append(np.zeros((c, 1, h)))
+                if self.cfg.use_block_switch:
+                    tail.append(np.zeros((c, 1, h)))
+                halves = np.concatenate(tail, axis=1)
+            return self._emit(halves)
 
     def _emit(self, halves: np.ndarray) -> bytes:
         if self.cfg.use_block_switch:
@@ -144,19 +149,21 @@ class StreamEncoder:
         return self._emit_flat(halves)
 
     def _res0(self) -> torch.Tensor:
-        return torch.as_tensor(self.state.reservoir.astype(np.int32),
-                               device=self.device)
+        return tracing.upload(self.state.reservoir.astype(np.int32),
+                              self.device)
 
     def _emit_flat(self, halves: np.ndarray) -> bytes:
         """Fixed rate and VBR: half h_j completes frame j = [h_{j-1} | h_j]."""
         st, cfg, c = self.state, self.cfg, self.consts
+        with tracing.span("tac.stream.enc.core"):
+            if cfg.use_huffman:
+                words, nbits, ress = codec.encode_frames_vbr_packed_halves(
+                    st.prior, halves, self._res0(), cfg, c)
+            else:
+                words, nbits = codec.encode_frames_packed_halves(
+                    st.prior, halves, cfg, c)
         if cfg.use_huffman:
-            words, nbits, ress = codec.encode_frames_vbr_packed_halves(
-                st.prior, halves, self._res0(), cfg, c)
-            st.reservoir = ress[:, -1].cpu().numpy().astype(np.int64)
-        else:
-            words, nbits = codec.encode_frames_packed_halves(
-                st.prior, halves, cfg, c)
+            st.reservoir = _lane_fills(ress)
         st.prior = halves[:, -1].copy()
         st.blocks_out += halves.shape[1]
         return api.words_to_stream(words, nbits)
@@ -172,18 +179,26 @@ class StreamEncoder:
             if halves.shape[1] == 0:
                 return b""
         m = halves.shape[1]
+        with tracing.span("tac.stream.enc.core"):
+            if cfg.use_huffman:
+                words, nbits, t, ress = bsw.encode_frames_bs_vbr_packed(
+                    st.prior, st.look, halves, st.t_hist, self._res0(), cfg, c)
+            else:
+                words, nbits, t = bsw.encode_frames_bs_packed(
+                    st.prior, st.look, halves, st.t_hist, cfg, c)
         if cfg.use_huffman:
-            words, nbits, t, ress = bsw.encode_frames_bs_vbr_packed(
-                st.prior, st.look, halves, st.t_hist, self._res0(), cfg, c)
-            st.reservoir = ress[:, -1].cpu().numpy().astype(np.int64)
-        else:
-            words, nbits, t = bsw.encode_frames_bs_packed(
-                st.prior, st.look, halves, st.t_hist, cfg, c)
-        st.t_hist = t[:, m:m + 2].cpu().numpy()   # (t_{e+m-2}, t_{e+m-1})
+            st.reservoir = _lane_fills(ress)
+        # (t_{e+m-2}, t_{e+m-1})
+        st.t_hist = tracing.to_host(t[:, m:m + 2]).numpy()
         st.prior = (halves[:, -2] if m >= 2 else st.look).copy()
         st.look = halves[:, -1].copy()
         st.blocks_out += m
         return api.words_to_stream(words, nbits)
+
+
+def _lane_fills(ress: torch.Tensor) -> np.ndarray:
+    """Each lane's reservoir fill after a push's last frame, on the host."""
+    return tracing.to_host(ress[:, -1]).numpy().astype(np.int64)
 
 
 class StreamDecoder:
@@ -216,35 +231,42 @@ class StreamDecoder:
     def push(self, data: bytes) -> np.ndarray:
         """data: the next stream bytes → float32[T', C] newly finished
         samples (none until a whole frame of C blocks has arrived)."""
-        self.buf += data
-        cfg = self.cfg
-        c, h = cfg.n_channels, cfg.n_mdct_lines
-        offs, lens, pos = [], [], 0
-        while len(self.buf) - pos >= 2:
-            (ln,) = struct.unpack_from("<H", self.buf, pos)
-            if pos + 2 + ln > len(self.buf):
-                break
-            offs.append(pos + 2)
-            lens.append(ln)
-            pos += 2 + ln
-        m = len(offs) // c
-        if m == 0:
-            return np.zeros((0, c), np.float32)
-        # raises CorruptStreamError on a block longer than the capacity
-        rows = stream_to_rows(self.buf, np.asarray(offs[:m * c], np.int64),
-                              np.asarray(lens[:m * c], np.int64), self.w32)
-        self.buf = self.buf[offs[m * c - 1] + lens[m * c - 1]:]
-        words = np.ascontiguousarray(
-            rows.reshape(m, c, self.w32).swapaxes(0, 1)).view(np.int32)
-        priming = self.tail is None        # frame 0's first half is padding
-        tail = torch.zeros((c, h)) if priming else self.tail
-        out, self.tail = codec.decode_frames_stream(words, tail, cfg,
-                                                    self.consts)
-        self.frames_in += m
-        if priming:
-            out = out[:, 1:]
-        out = out.reshape(c, -1).T.cpu().numpy().astype(np.float32)
-        if self.num_samples:
-            out = out[:max(self.num_samples - self.emitted, 0)]
-        self.emitted += out.shape[0]
-        return out
+        with tracing.span("tac.stream.dec.push"):
+            cfg = self.cfg
+            c, h = cfg.n_channels, cfg.n_mdct_lines
+            with tracing.span("tac.stream.dec.walk"):
+                self.buf += data
+                offs, lens, pos = [], [], 0
+                while len(self.buf) - pos >= 2:
+                    (ln,) = struct.unpack_from("<H", self.buf, pos)
+                    if pos + 2 + ln > len(self.buf):
+                        break
+                    offs.append(pos + 2)
+                    lens.append(ln)
+                    pos += 2 + ln
+                m = len(offs) // c
+                if m == 0:
+                    return np.zeros((0, c), np.float32)
+                # raises CorruptStreamError on a block longer than the
+                # capacity
+                rows = stream_to_rows(
+                    self.buf, np.asarray(offs[:m * c], np.int64),
+                    np.asarray(lens[:m * c], np.int64), self.w32)
+                self.buf = self.buf[offs[m * c - 1] + lens[m * c - 1]:]
+                words = np.ascontiguousarray(
+                    rows.reshape(m, c, self.w32).swapaxes(0, 1)).view(np.int32)
+            priming = self.tail is None    # frame 0's first half is padding
+            with tracing.span("tac.stream.dec.decode"):
+                tail = (torch.zeros((c, h), device=self.device) if priming
+                        else self.tail)
+                out, self.tail = codec.decode_frames_stream(words, tail, cfg,
+                                                            self.consts)
+            self.frames_in += m
+            if priming:
+                out = out[:, 1:]
+            out = tracing.to_host(out.reshape(c, -1).T).numpy().astype(
+                np.float32)
+            if self.num_samples:
+                out = out[:max(self.num_samples - self.emitted, 0)]
+            self.emitted += out.shape[0]
+            return out
