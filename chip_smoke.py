@@ -269,6 +269,33 @@ def profile_device(fn, top: int = 15) -> dict:
             "top": [[k[0][:80], k[1], k[2]] for k in kern[:top]]}
 
 
+def device_kernel_launches(fn) -> dict:
+    """Each codec kernel's launches on the card over one call of fn, by the
+    profiler's kernel names (``tracing.DEVICE_KERNELS``), keyed as
+    all_counters(): those of a replayed CUDA graph too, which no
+    ``.launches`` counter sees. A lower bound: the profiler drops a few of
+    these kernels' records in a window (PERF.md §6). The names are
+    read from the profiler's raw results, without building its event
+    tree (a stream's million kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tac_torch import tracing
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    raw = getattr(p.profiler, "kineto_results", None)
+    names = ([e.name() for e in raw.events()
+              if e.device_type() == DeviceType.CUDA] if raw is not None else
+             [e.name for e in p.events()
+              if "CUDA" in str(getattr(e, "device_type", ""))])
+    return {k: sum(tracing.DEVICE_KERNELS[f.__name__] in n for n in names)
+            for k, f in all_counters().items()}
+
+
 def fused_water_fill(smr, nl, budget, mm=16):
     """Single-grant greedy with the FUSED need fl(s - 6.02f*a) (numpy): what
     a contracted kernel would compute, for the FMA row's demonstration."""
@@ -1752,11 +1779,12 @@ def phase_stream(card: str) -> dict:
     half-block a push, and PRESETS["vbr-bs"] (stereo, H = 1024) on 15 s in
     1 024-sample pushes, nothing cut; each stream's StreamDecoder fed one
     frame's bytes at a time. Push wall times against the hop, audio-s per
-    wall-s, launches per push; the stream byte-identical to the offline
-    encode of the same clip (tac's own contract is bytes within 0.1 % and
-    a decode >= 40 dB; K6 and K7 make every push's floats the batch's); K1 / K3
-    on inputs captured from pushes in mid-stream (K3 from a carried fill
-    above 0) against their plain versions, exactly.
+    wall-s, launches per push (a graphed coder's counted on the card by
+    the profiler, over the same pushes again); the stream byte-identical
+    to the offline encode of the same clip (tac's own contract is bytes
+    within 0.1 % and a decode >= 40 dB; K6 and K7 make every push's floats
+    the batch's); K1 / K3 on inputs captured from pushes in mid-stream (K3
+    from a carried fill above 0) against their plain versions, exactly.
     seek_path: decode_range on a vbr-huffman and a vbr-ms-bs stream of 15 s
     stereo at tests/test_seek.py's ranges, fast within 2e-5 of the full
     decode, and the vbr-ms-bs one in parity exact.
@@ -1771,7 +1799,7 @@ def phase_stream(card: str) -> dict:
 
     import torch
 
-    from tac_torch import api
+    from tac_torch import api, streaming
     from tac_torch.bitstream import CorruptStreamError, read_header
     from tac_torch.config import PRESETS
     from tac_torch.ops import alloc as k1
@@ -1789,6 +1817,44 @@ def phase_stream(card: str) -> dict:
 
     def read():
         return read_counters(counters)
+
+    def carried_on(enc, cfg, c):
+        """A fresh encoder carrying on from enc's state: its first push
+        runs eagerly, so that the kernels are called from Python (a graphed
+        encoder replays its later pushes)."""
+        fresh = StreamEncoder(cfg, n_channels=c, device=dev)
+        fresh.state = StreamState.from_bytes(enc.state.to_bytes())
+        return fresh
+
+    def on_card(cfg, x, hop, c, marks, block=128):
+        """The timed pass's pushes again (fresh coders, its resumes and
+        flush), `block` pushes at a time under the profiler → (encoder's,
+        decoder's) launches on the card of each codec kernel."""
+        n_push = -(-len(x) // hop)
+        enc = StreamEncoder(cfg, n_channels=c, device=dev)
+        frames, got = [], [dict.fromkeys(counters, 0) for _ in range(2)]
+
+        def encode(a, b):
+            nonlocal enc
+            for i in range(a, b):
+                if i in marks:
+                    enc = carried_on(enc, cfg, c)
+                frames.append(enc.push(x[i * hop:(i + 1) * hop]))
+            if b == n_push:
+                frames.append(enc.flush())
+
+        for a in range(0, n_push, block):
+            for k_, v in device_kernel_launches(
+                    lambda: encode(a, min(a + block, n_push))).items():
+                got[0][k_] += v
+        dec = StreamDecoder.from_header(enc.header(len(x)), device=dev)[0]
+        frames = [b for b in frames if b]
+        for a in range(0, len(frames), block):
+            pushes = frames[a:a + block]
+            for k_, v in device_kernel_launches(
+                    lambda: [dec.push(b) for b in pushes]).items():
+                got[1][k_] += v
+        return got
 
     # ---- stream_parity_on_card
     t_phase = time.perf_counter()
@@ -1867,6 +1933,8 @@ def phase_stream(card: str) -> dict:
             frames, enc_ms, log = [], [], {}
             t0 = time.perf_counter()
             for i in range(n_push):
+                if i in marks:
+                    enc = carried_on(enc, cfg, c)
                 t1 = time.perf_counter()
                 if i in marks:
                     with captured_kernel_inputs(log):
@@ -1890,8 +1958,16 @@ def phase_stream(card: str) -> dict:
                 dec_ms.append((time.perf_counter() - t1) * 1e3)
             dec_wall = time.perf_counter() - t0
             after = read()
+            issued = ({k_: mid[k_] - before[k_] for k_ in mid},
+                      {k_: after[k_] - mid[k_] for k_ in mid})
+            # a graphed coder's replays launch from the card: its launches
+            # are the profiler's, over the same pushes again
+            t1 = time.perf_counter()
+            graphed = streaming.graphed(cfg, dev)
+            launched = on_card(cfg, x, hop, c, marks) if graphed else issued
+            steps[f"{what}_on_card_s"] = time.perf_counter() - t1
             for k_ in launches_stream:
-                launches_stream[k_] += after[k_] - before[k_]
+                launches_stream[k_] += launched[0][k_] + launched[1][k_]
             captured[what] = log
             stream = header + b"".join(frames)
             y_stream = np.concatenate(outs)
@@ -1910,8 +1986,11 @@ def phase_stream(card: str) -> dict:
                 "encode_audio_s_per_wall_s": audio_s / enc_wall,
                 "decode_push": wall_stats(dec_ms, hop_ms),
                 "decode_audio_s_per_wall_s": audio_s / dec_wall,
-                "launches_encode": {k_: mid[k_] - before[k_] for k_ in mid},
-                "launches_decode": {k_: after[k_] - mid[k_] for k_ in mid},
+                "launches_counted_by": "profiler" if graphed else "counters",
+                "launches_encode": launched[0],
+                "launches_decode": launched[1],
+                "launches_python_encode": issued[0],
+                "launches_python_decode": issued[1],
                 "stream_bytes": len(stream), "offline_bytes": len(data_off),
                 "frames_differing_from_offline": n_diff,
                 "first_differing_frame": first_diff, "frames": n_frames,
@@ -1931,7 +2010,12 @@ def phase_stream(card: str) -> dict:
             check(stream == data_off, f"{what}: {n_diff} of {n_frames} "
                   f"frames differ from the offline encode (first "
                   f"{first_diff})")
-    steps["streams_s"] = time.perf_counter() - t_step - steps["warm_and_offline_s"]
+            check(all(launched[j][k_] >= issued[j][k_] for j in (0, 1)
+                      for k_ in counters),
+                  f"{what}: the card launched fewer kernels than Python "
+                  f"called: {launched} against {issued}")
+    steps["streams_s"] = (time.perf_counter() - t_step
+                          - sum(v for v in steps.values()))
     t_step = time.perf_counter()
     print(f"stream path launches: {launches_stream}")
     check(all(launches_stream[k_] > 0 for k_ in kernel_counters()),

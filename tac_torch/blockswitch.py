@@ -616,24 +616,21 @@ def encode_clip_bs_vbr_packed(x, cfg: CodecConfig, device=None):
 
 # ------------------------------------------------ streaming frame cores ---
 
-def ms_stream_prep(prior, look, halves, t_hist, cfg: CodecConfig,
-                   c: BsConsts):
+def ms_stream_prep(seq, t_hist, cfg: CodecConfig, c: BsConsts):
     """The front half of every block-switch streaming core
     (tac/blockswitch.py:_ms_stream_prep, and its L/R form).
 
     With e the next frame to emit and h_j the half-block of samples
-    [jH, (j+1)H): prior [C, H] = h_{e-1}, look [C, H] = h_e, halves
-    [C, m, H] = h_{e+1..e+m} (L/R, arrays or tensors), t_hist bool [L, 2] =
-    (t_{e-2}, t_{e-1}) per channel, or per pair under M/S → (frames f[C, m,
-    N] of frame j = [h_{j-1} | h_j], butterflied under M/S; states int32
-    [C, m], a pair's two channels sharing the state of their OR-ed flags;
-    t bool [L, m+3] = (t_{e-2}, ..., t_{e+m}), whose columns m and m+1 are
-    the next t_hist)."""
+    [jH, (j+1)H): seq [C, m+2, H] = (h_{e-1}, h_e, h_{e+1..e+m}), the prior
+    half, the lookahead and m new halves (L/R, in the codec's float type),
+    and t_hist bool [L, 2] = (t_{e-2}, t_{e-1}) per channel, or per pair
+    under M/S, each on the host or on c's device → (frames f[C, m, N] of
+    frame j = [h_{j-1} | h_j], butterflied under M/S; states int32 [C, m],
+    a pair's two channels sharing the state of their OR-ed flags; t bool
+    [L, m+3] = (t_{e-2}, ..., t_{e+m}), whose columns m and m+1 are the
+    next t_hist)."""
     dev = c.cl.window.device
-    seq = tracing.upload(torch.cat([torch.as_tensor(prior)[:, None],
-                                    torch.as_tensor(look)[:, None],
-                                    torch.as_tensor(halves)],
-                                   dim=1).to(c.cl.dtype), dev)  # [C, m+2, H]
+    seq = tracing.upload(seq, dev)
     ch, m = seq.shape[0], seq.shape[1] - 2
     ms = cfg.stereo_mode == "ms"
     if ms:
@@ -647,25 +644,24 @@ def ms_stream_prep(prior, look, halves, t_hist, cfg: CodecConfig,
     return frames, (states.repeat_interleave(2, dim=0) if ms else states), t
 
 
-def encode_frames_bs_packed(prior, look, halves, t_hist, cfg: CodecConfig,
-                            c: BsConsts):
+def encode_frames_bs_packed(seq, t_hist, cfg: CodecConfig, c: BsConsts):
     """Streaming block-switch core, fixed rate (tac/blockswitch.py:
     _encode_frames_bs_packed and its M/S form): one frame per new half, the
-    lookahead as in ``ms_stream_prep`` → (words int32 [C, m, W32], nbits
-    int64 [C, m], t bool [L, m+3])."""
+    halves and flags as ``ms_stream_prep`` takes them → (words int32
+    [C, m, W32], nbits int64 [C, m], t bool [L, m+3])."""
     with tracing.span("tac.codec.analysis"):
-        frames, states, t = ms_stream_prep(prior, look, halves, t_hist, cfg, c)
+        frames, states, t = ms_stream_prep(seq, t_hist, cfg, c)
     return (*encode_frames_bs(frames, states, cfg, c), t)
 
 
-def encode_frames_bs_vbr_packed(prior, look, halves, t_hist, res0,
-                                cfg: CodecConfig, c: BsConsts):
+def encode_frames_bs_vbr_packed(seq, t_hist, res0, cfg: CodecConfig,
+                                c: BsConsts):
     """Streaming Huffman × block-switch core (tac/blockswitch.py:
     _encode_frames_bs_vbr_packed and its M/S form): as
     ``encode_frames_bs_packed``, plus the carried fills res0 int32 [L] →
     (words, nbits, t, res int32 [L, m])."""
     with tracing.span("tac.codec.analysis"):
-        frames, states, t = ms_stream_prep(prior, look, halves, t_hist, cfg, c)
+        frames, states, t = ms_stream_prep(seq, t_hist, cfg, c)
     words, nbits, ress = encode_frames_bs_vbr(frames, states, res0, cfg, c)
     return words, nbits, t, ress
 

@@ -345,27 +345,34 @@ def decode_clip(code: FrameCode, cfg: CodecConfig, t: int, device=None):
 
 # ------------------------------------------- frame-level streaming cores ---
 
-def frames_from_halves(prior, halves, cfg: CodecConfig, c: CodecConsts):
-    """prior [C, H] + halves [C, m, H] (L/R, arrays or tensors) → frames
-    f[C, m, N] on c's device in the codec's float type, frame j =
-    [h_{j-1} | h_j], butterflied per channel pair under M/S (per sample,
-    so it commutes with framing: the offline frames of the same samples)."""
-    seq = tracing.upload(torch.cat([torch.as_tensor(prior)[:, None],
-                                    torch.as_tensor(halves)],
-                                   dim=1).to(c.dtype), c.window.device)
-    if cfg.stereo_mode == "ms":                     # seq [C, m+1, H]
+def frames_from_halves(seq, cfg: CodecConfig, c: CodecConsts):
+    """seq [C, m+1, H]: the prior half and m new halves h_0..h_{m-1} (L/R,
+    in the codec's float type; on the host or on c's device) → frames
+    f[C, m, N] on c's device, frame j = [h_{j-1} | h_j], butterflied per
+    channel pair under M/S (per sample, so it commutes with framing: the
+    offline frames of the same samples)."""
+    seq = tracing.upload(seq, c.window.device)
+    if cfg.stereo_mode == "ms":
         seq = ms_forward(seq.reshape(seq.shape[0], -1)).reshape(seq.shape)
     return torch.cat([seq[:, :-1], seq[:, 1:]], dim=-1)
 
 
-def encode_frames_packed_halves(prior, halves, cfg: CodecConfig,
-                                c: CodecConsts):
+def encode_frames_packed_halves(seq, cfg: CodecConfig, c: CodecConsts):
     """Streaming fixed-rate core (tac/codec.py:_encode_frames_packed_halves
-    and its M/S form): (prior [C, H], halves [C, m, H]) → (words int32
-    [C, m, W32], nbits int64 [C, m]), through the offline row path."""
+    and its M/S form): the prior half and m new halves seq [C, m+1, H], as
+    ``frames_from_halves`` takes them → (words int32 [C, m, W32], nbits
+    int64 [C, m]), through the offline row path."""
     with tracing.span("tac.codec.analysis"):
-        frames = frames_from_halves(prior, halves, cfg, c)
+        frames = frames_from_halves(seq, cfg, c)
     return encode_frames_packed(frames, cfg, c)
+
+
+@functools.cache
+def _head_widths(widths: tuple, device: torch.device) -> torch.Tensor:
+    """The head's fixed field widths as int64 [len] on `device`, uploaded
+    once per (widths, device) and shared, never written; never evicted, as
+    ``quant._int_const``."""
+    return tracing.upload(torch.tensor(widths, dtype=torch.int64), device)
 
 
 def read_head(wf: torch.Tensor, cfg: CodecConfig, pre: tuple):
@@ -378,8 +385,7 @@ def read_head(wf: torch.Tensor, cfg: CodecConfig, pre: tuple):
     s, a = cfg.n_scale_bits, cfg.n_mant_size_bits
     nb = bands.N_BANDS
     k = wf.shape[0]
-    wid = tracing.upload(torch.tensor([*pre] + [a] * nb, dtype=torch.int64),
-                         wf.device)
+    wid = _head_widths((*pre, *[a] * nb), wf.device)
     off = torch.cumsum(wid, 0) - wid
     head = read_fields(wf, off.expand(k, -1), wid.expand(k, -1))
     alloc_code = head[:, len(pre):]
@@ -688,14 +694,15 @@ def encode_clip_vbr_packed(x, cfg: CodecConfig, device=None):
     return encode_frames_vbr_packed(frames, res0, cfg, c)[:2]
 
 
-def encode_frames_vbr_packed_halves(prior, halves, res0, cfg: CodecConfig,
+def encode_frames_vbr_packed_halves(seq, res0, cfg: CodecConfig,
                                     c: CodecConsts):
     """Streaming VBR core (tac/codec.py:_encode_frames_vbr_packed and its
-    M/S form): (prior [C, H], halves [C, m, H], the carried fills res0
-    int32 [L] of the C channels' or C/2 pairs' lanes) → (words int32
-    [C, m, W32], nbits int64 [C, m], res int32 [L, m])."""
+    M/S form): (the prior half and m new halves seq [C, m+1, H], as
+    ``frames_from_halves`` takes them; the carried fills res0 int32 [L] of
+    the C channels' or C/2 pairs' lanes) → (words int32 [C, m, W32], nbits
+    int64 [C, m], res int32 [L, m])."""
     with tracing.span("tac.codec.analysis"):
-        frames = frames_from_halves(prior, halves, cfg, c)
+        frames = frames_from_halves(seq, cfg, c)
     return encode_frames_vbr_packed(frames, res0, cfg, c)
 
 

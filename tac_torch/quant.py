@@ -10,17 +10,27 @@ tensor's dtype: f64 in parity mode, f32 in fast mode.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tac_torch import tracing
 
 
+@functools.cache
+def _int_const(x: int, device: torch.device) -> torch.Tensor:
+    """x as an int64 scalar on `device`, uploaded once per (value, device)
+    and shared, never written. Never evicted: a push core captured as a
+    CUDA graph reads it in place (the widths are a config's few ints)."""
+    return tracing.upload(torch.tensor(x, dtype=torch.int64), device)
+
+
 def _i64(x, like: torch.Tensor) -> torch.Tensor:
-    """x (an int or an int tensor) as int64 on like's device; an int is
-    uploaded."""
+    """x (an int or an int tensor) as int64 on like's device; an int is a
+    cached constant there."""
     if isinstance(x, torch.Tensor):
         return x.to(device=like.device, dtype=torch.int64)
-    return tracing.upload(torch.tensor(x, dtype=torch.int64), like.device)
+    return _int_const(int(x), like.device)
 
 
 def _quantize(a: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

@@ -21,11 +21,18 @@ input, so the transient detector sees the half-block entering the next
 frame (SPEC.md §9): 2·H/fs of algorithmic delay, 11.6 ms at H = 256,
 44.1 kHz. The decoder finishes frame i's first half when frame i arrives:
 one half-block of delay.
+
+On a card, a fast fixed-rate coder (``graphed``) replays its push core as
+a CUDA graph: a push's shapes are fixed by its channels and frames, and
+the core is some 700 small kernels (the decoder's some 200) that the host
+would otherwise launch one by one. The same kernels run in the same order
+on the same inputs, so the bytes and the PCM are the eager path's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import json
 import struct
@@ -39,6 +46,110 @@ from tac_torch import blockswitch as bsw
 from tac_torch.bitstream import read_header
 from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.ops.bitpack import stream_to_rows
+
+# Push shapes (C, m) of which a coder keeps a CUDA graph: a live stream
+# pushes one or two; shapes past these run eagerly.
+GRAPHS = 4
+
+
+def graphed(cfg: CodecConfig, device: torch.device) -> bool:
+    """Whether a coder of `cfg` on `device` replays its push core as a CUDA
+    graph: fast precision on a card, fixed rate (flat or block switching,
+    L/R or M/S). Parity's forward FFT runs on the host (``mdct_fft``),
+    which no graph holds; the Huffman (VBR) families, whose cores carry the
+    reservoir fills through the host and run K3 and K4, have not been held
+    to their eager bytes under capture. Those stay eager, as the CPU
+    does."""
+    return (device.type == "cuda" and cfg.precision == "fast"
+            and not cfg.use_huffman)
+
+
+def _capture(fn, ins: list):
+    """fn over the static inputs `ins`, captured as a CUDA graph → (graph,
+    fn's outputs: the graph's own tensors). Capturing runs nothing."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn(*ins)
+    return graph, outs
+
+
+class _Graph:
+    """One push core captured at one input shape: static inputs, pinned
+    staging for those that come from the host, the graph and its outputs.
+    The kernels' ``.launches`` count the capture's calls, once; a replay
+    counts in ``graph_replays`` (the card's own launches are the
+    profiler's to count)."""
+
+    def __init__(self, fn, args: tuple, device: torch.device):
+        pin = device.type == "cuda"
+        self.stage = [torch.empty(a.shape, dtype=a.dtype, pin_memory=pin)
+                      if a.device.type == "cpu" else None for a in args]
+        self.ins = [torch.empty(a.shape, dtype=a.dtype, device=device)
+                    for a in args]
+        self.graph, self.outs = _capture(fn, self.ins)
+        tracing.count("graph_captures")
+
+    def replay(self, args: tuple):
+        for a, st, x in zip(args, self.stage, self.ins):
+            if st is not None:
+                st.copy_(a)
+                tracing.stage(x, st)
+            elif a is not x:
+                x.copy_(a)
+        self.graph.replay()
+        tracing.count("graph_replays")
+        return self.outs
+
+
+class _PushGraphs:
+    """A push core ``fn(*tensors) → tuple of tensors`` run on `device` as
+    CUDA graphs, one per input shape. A shape's first push runs eagerly and
+    makes every constant the core caches; its second is captured, and it
+    and every later push of that shape replay the graph, up to GRAPHS
+    shapes. Arguments on the host are staged through pinned memory into
+    the graph's static inputs; arguments on the device are copied into
+    them unless they are those inputs. A replay's outputs are the graph's
+    own tensors, overwritten by its next replay."""
+
+    def __init__(self, fn, device: torch.device):
+        self.fn, self.device = fn, device
+        self.seen, self.graphs = set(), {}
+
+    def __call__(self, *args):
+        key = tuple((a.shape, a.dtype, a.device.type) for a in args)
+        g = self.graphs.get(key)
+        if g is None:
+            if key not in self.seen or len(self.graphs) >= GRAPHS:
+                self.seen.add(key)
+                return self.fn(*args)
+            with tracing.span("tac.stream.graph.capture"):
+                g = self.graphs[key] = _Graph(self.fn, args, self.device)
+        with tracing.span("tac.stream.graph.replay"):
+            return g.replay(args)
+
+
+def _fixed_core(cfg: CodecConfig, c, *args):
+    """The fixed-rate encoder's push core on (seq[, t_hist]) of
+    ``_emit_flat`` / ``_emit_bs``, host or device tensors → its device
+    outputs."""
+    if cfg.use_block_switch:
+        return bsw.encode_frames_bs_packed(*args, cfg, c)
+    return codec.encode_frames_packed_halves(*args, cfg, c)
+
+
+def _decode_into(cfg: CodecConfig, c, words, tail: torch.Tensor):
+    """The graphed decoder's push core: (words int32 [C, m, W32], the
+    carried tail [C, H]) → (out [C, m, H], tail), the new tail written over
+    the old, so that a graph's tail stays its static input."""
+    out, new = codec.decode_frames_stream(words, tail, cfg, c)
+    tail.copy_(new)
+    return out, tail
+
+
+def _seq(dtype, *parts: np.ndarray) -> torch.Tensor:
+    """Half-blocks [C, k_i, H] (host arrays) side by side → one host tensor
+    [C, Σk_i, H] in the codec's float type."""
+    return torch.from_numpy(np.concatenate(parts, axis=1)).to(dtype)
 
 
 @dataclasses.dataclass
@@ -92,6 +203,10 @@ class StreamEncoder:
         self.device = resolve_device(device)
         self.consts = (bsw.make_bs_consts if cfg.use_block_switch
                        else codec.make_consts)(cfg, self.device)
+        # the cores hold the config and constants, not the coder
+        self.core = functools.partial(_fixed_core, cfg, self.consts)
+        self.graphs = (_PushGraphs(self.core, self.device)
+                       if graphed(cfg, self.device) else None)
         h = cfg.n_mdct_lines
         # one reservoir and one flag history per lane: a channel, or under
         # M/S a pair (the halves stay L/R; the cores butterfly them)
@@ -152,16 +267,21 @@ class StreamEncoder:
         return tracing.upload(self.state.reservoir.astype(np.int32),
                               self.device)
 
+    def _fixed(self, *args):
+        """The fixed-rate push core, replayed as a CUDA graph where the
+        coder has them."""
+        return (self.core if self.graphs is None else self.graphs)(*args)
+
     def _emit_flat(self, halves: np.ndarray) -> bytes:
         """Fixed rate and VBR: half h_j completes frame j = [h_{j-1} | h_j]."""
         st, cfg, c = self.state, self.cfg, self.consts
         with tracing.span("tac.stream.enc.core"):
+            seq = _seq(c.dtype, st.prior[:, None], halves)
             if cfg.use_huffman:
                 words, nbits, ress = codec.encode_frames_vbr_packed_halves(
-                    st.prior, halves, self._res0(), cfg, c)
+                    seq, self._res0(), cfg, c)
             else:
-                words, nbits = codec.encode_frames_packed_halves(
-                    st.prior, halves, cfg, c)
+                words, nbits = self._fixed(seq)
         if cfg.use_huffman:
             st.reservoir = _lane_fills(ress)
         st.prior = halves[:, -1].copy()
@@ -180,12 +300,14 @@ class StreamEncoder:
                 return b""
         m = halves.shape[1]
         with tracing.span("tac.stream.enc.core"):
+            seq = _seq(c.cl.dtype, st.prior[:, None], st.look[:, None],
+                       halves)
+            t_hist = torch.from_numpy(st.t_hist)
             if cfg.use_huffman:
                 words, nbits, t, ress = bsw.encode_frames_bs_vbr_packed(
-                    st.prior, st.look, halves, st.t_hist, self._res0(), cfg, c)
+                    seq, t_hist, self._res0(), cfg, c)
             else:
-                words, nbits, t = bsw.encode_frames_bs_packed(
-                    st.prior, st.look, halves, st.t_hist, cfg, c)
+                words, nbits, t = self._fixed(seq, t_hist)
         if cfg.use_huffman:
             st.reservoir = _lane_fills(ress)
         # (t_{e+m-2}, t_{e+m-1})
@@ -213,6 +335,9 @@ class StreamDecoder:
         self.num_samples = int(num_samples)   # 0: unknown, emit everything
         self.device = resolve_device(device)
         self.consts = codec.frame_decoder(cfg)[1](cfg, self.device)
+        self.graphs = (_PushGraphs(functools.partial(
+            _decode_into, cfg, self.consts), self.device)
+            if graphed(cfg, self.device) else None)
         self.w32 = api.payload_words(cfg)
         self.buf = b""
         self.tail: Optional[torch.Tensor] = None
@@ -259,8 +384,12 @@ class StreamDecoder:
             with tracing.span("tac.stream.dec.decode"):
                 tail = (torch.zeros((c, h), device=self.device) if priming
                         else self.tail)
-                out, self.tail = codec.decode_frames_stream(words, tail, cfg,
-                                                            self.consts)
+                if self.graphs is None:
+                    out, self.tail = codec.decode_frames_stream(
+                        words, tail, cfg, self.consts)
+                else:
+                    out, self.tail = self.graphs(torch.from_numpy(words),
+                                                 tail)
             self.frames_in += m
             if priming:
                 out = out[:, 1:]

@@ -34,6 +34,11 @@ Spans (``tac.`` names):
   tac.stream.dec.push   StreamDecoder.push: root, over tac.stream.dec.walk
                         (the u16 framing walk, stream_to_rows) and
                         tac.stream.dec.decode (the frame decode)
+  tac.stream.graph.capture  inside .enc.core / .dec.decode on a card: the
+                        push core captured as a CUDA graph (its inner
+                        tac.codec.* spans are the capture's)
+  tac.stream.graph.replay   the same: the graph staged and replayed, in
+                        place of the core's inner spans
   tac.sync              every blocking read of a tensor to the host
                         (``to_host``)
   tac.h2d               every upload of host data (``upload``)
@@ -41,7 +46,9 @@ Spans (``tac.`` names):
 Counters: ``syncs`` and ``d2h_bytes`` (reads of device tensors through
 ``to_host``: on a card each one waits for the device), ``h2d_bytes`` and
 ``h2d_pageable_bytes`` (uploads to a device through ``upload``, and those
-of them from memory that is not pinned).
+of them from memory that is not pinned; ``stage`` counts its copies
+there too), ``graph_captures`` and ``graph_replays`` (push cores captured
+as CUDA graphs, and replays of them).
 """
 
 from __future__ import annotations
@@ -53,7 +60,8 @@ import torch
 import torch.autograd.profiler as _profiler
 
 CAP = 1_000_000
-COUNTERS = ("syncs", "d2h_bytes", "h2d_bytes", "h2d_pageable_bytes")
+COUNTERS = ("syncs", "d2h_bytes", "h2d_bytes", "h2d_pageable_bytes",
+            "graph_captures", "graph_replays")
 
 
 class _Trace:
@@ -150,7 +158,9 @@ def span(name: str):
 
 
 def launches() -> dict:
-    """The hand-written kernels' own launch counters, read where they are."""
+    """The hand-written kernels' own launch counters, read where they are:
+    the calls Python makes, a CUDA graph's capture among them; a graph's
+    replays are counted in ``graph_replays``."""
     from tac_torch.ops import (alloc, huffdec, mdct_fused, pack, row_gemm,
                                segment_sum, vbr_scan)
 
@@ -159,6 +169,25 @@ def launches() -> dict:
         vbr_scan.vbr_reservoir_scan, huffdec.huffman_decode_sets,
         mdct_fused.mdct_frames_fused, row_gemm.row_matmul,
         segment_sum.segment_sums)}
+
+
+# each counter's kernel on the card, by a part of the name a profiler lists
+# it under (a template adds its arguments): what a replayed graph launches
+# is counted there
+DEVICE_KERNELS = {"water_fill_rows": "water_fill_kernel",
+                  "scatter_words_rows": "scatter_words_kernel",
+                  "vbr_reservoir_scan": "vbr_scan_kernel",
+                  "huffman_decode_sets": "huffdec_sets_kernel",
+                  "mdct_frames_fused": "mdct_wgmma_kernel",
+                  "row_matmul": "row_gemm_kernel",
+                  "segment_sums": "segment_sum_kernel"}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` while tracing is on."""
+    if _T.on:
+        with _T.lock:
+            _T.counters[name] += n
 
 
 def snapshot() -> dict:
@@ -197,6 +226,15 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
         return out
 
 
+def _count_h2d(t: torch.Tensor) -> None:
+    """Count host tensor t's bytes as uploaded, and apart if it is not
+    pinned."""
+    n = t.numel() * t.element_size()
+    with _T.lock:
+        _T.counters["h2d_bytes"] += n
+        _T.counters["h2d_pageable_bytes"] += 0 if t.is_pinned() else n
+
+
 def upload(x, device) -> torch.Tensor:
     """x (an array or a tensor) on `device`, its dtype kept. Every upload of
     host data goes through here, in a tac.h2d span; one from the host to
@@ -207,9 +245,18 @@ def upload(x, device) -> torch.Tensor:
     with span("tac.h2d"):
         out = t.to(device)
         if t.device.type == "cpu" and out.device.type != "cpu" and t.numel():
-            n = t.numel() * t.element_size()
-            pageable = 0 if t.is_pinned() else n
-            with _T.lock:
-                _T.counters["h2d_bytes"] += n
-                _T.counters["h2d_pageable_bytes"] += pageable
+            _count_h2d(t)
         return out
+
+
+def stage(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst (on a device) ← src (host, pinned on a card), without waiting
+    for the copy: a graph's static input loaded before its replay. Counted
+    as ``upload`` counts, in a tac.h2d span."""
+    if not _T.on:
+        dst.copy_(src, non_blocking=True)
+        return
+    with span("tac.h2d"):
+        dst.copy_(src, non_blocking=True)
+        if dst.device.type != "cpu" and src.numel():
+            _count_h2d(src)

@@ -699,6 +699,11 @@ def test_fast_stream_mid_push_kernels_equal_plain(dev, monkeypatch):
         xin = x[:, 0] if cfg.n_channels == 1 else x
         enc = StreamEncoder(cfg, n_channels=cfg.n_channels, device=dev)
         for i in range(-(-len(xin) // hop)):
+            if 20 <= i <= 24:
+                # a fresh encoder resumed from the state: its first push
+                # runs eagerly, so that the kernels are called from Python
+                # (a streaming-ll encoder replays its later pushes)
+                enc = _resumed(enc, dev)
             if i == 20:
                 monkeypatch.setattr(tc, "water_fill_rows", rec_k1)
                 monkeypatch.setattr(tc, "vbr_reservoir_scan", rec_k3)
@@ -714,6 +719,124 @@ def test_fast_stream_mid_push_kernels_equal_plain(dev, monkeypatch):
         for g, w in zip(vbr_scan.vbr_reservoir_scan(*a, **kw),
                         vbr_scan.vbr_reservoir_scan_plain(*a, **kw)):
             assert torch.equal(g, w)
+
+
+def _resumed(enc, dev):
+    """A fresh StreamEncoder of enc's config carrying on from enc's state
+    (through its bytes)."""
+    from tac_torch.streaming import StreamEncoder, StreamState
+
+    fresh = StreamEncoder(enc.cfg, device=dev)
+    fresh.state = StreamState.from_bytes(enc.state.to_bytes())
+    return fresh
+
+
+def _device_launches(fn) -> dict:
+    """fn() under the profiler → the launches on the card of each
+    hand-written kernel (by ``tracing.DEVICE_KERNELS``' names), those a
+    replayed graph makes among them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tac_torch import tracing
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if "CUDA" in str(getattr(e, "device_type", ""))]
+    return {k: sum(v in n for n in names)
+            for k, v in tracing.DEVICE_KERNELS.items()}
+
+
+def _graph_stream(dev, cfg, x, sizes, resume_at):
+    """x through a StreamEncoder in pushes of `sizes`, moved at push
+    resume_at into a fresh encoder from its state, then the flush; every
+    push's bytes at once through a StreamDecoder. Tracing on, under the
+    profiler → (bytes, PCM, snapshot, the kernels' launch counters, their
+    launches on the card, the encoders, the decoder)."""
+    from tac_torch import tracing
+    from tac_torch.streaming import StreamDecoder, StreamEncoder
+
+    enc = StreamEncoder(cfg, device=dev)
+    dec = StreamDecoder.from_header(enc.header(0), device=dev)[0]
+    encs, sent, pcm = [enc], [], []
+    before = tracing.launches()
+
+    def run():
+        i = 0
+        for k, n in enumerate(sizes + [None]):
+            if k == resume_at:
+                encs.append(_resumed(encs[-1], dev))
+            sent.append(encs[-1].flush() if n is None
+                        else encs[-1].push(x[i:i + n]))
+            pcm.append(dec.push(sent[-1]))
+            i += n or 0
+
+    tracing.enable(True)
+    tracing.reset()
+    try:
+        on_card = _device_launches(run)
+        snap = tracing.snapshot()
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+    after = tracing.launches()
+    return (b"".join(sent), np.concatenate(pcm), snap,
+            {k: after[k] - before[k] for k in after}, on_card, encs, dec)
+
+
+@pytest.mark.parametrize("preset", ["streaming-ll", "stereo44-128", "ms-bs"])
+def test_graph_pushes_equal_eager(dev, preset, monkeypatch):
+    """Fast fixed-rate streams on the card, pushes replayed as CUDA graphs
+    against the same pushes run eagerly: over 210 pushes of one to three
+    frames (their order seeded), a resume into a fresh encoder at push 105
+    and the flush, the same bytes and the decoder's PCM bit for bit; the
+    kernels' ``.launches`` count only the eager pushes' and the captures'
+    calls, while the card launches the kernels in the replays too; each
+    shape run eagerly once, captured at most once and replayed on every
+    later push, the graph spans inside the core spans."""
+    from tac_torch import streaming
+
+    cfg = PRESETS[preset]
+    h = cfg.n_mdct_lines
+    sizes = [h * int(m) for m in np.random.default_rng(len(preset))
+             .integers(1, 4, 210)]
+    x = _strike_clip(sum(sizes) / cfg.sample_rate + 0.01)
+    x = x[:, 0] if cfg.n_channels == 1 else x
+    with torch.no_grad():
+        got = _graph_stream(dev, cfg, x, sizes, 105)
+        monkeypatch.setattr(streaming, "graphed", lambda c, d: False)
+        want = _graph_stream(dev, cfg, x, sizes, 105)
+    assert got[0] == want[0]
+    assert got[1].shape == want[1].shape and np.array_equal(got[1], want[1])
+    assert want[2]["counters"]["graph_replays"] == 0
+    spans, counters = got[2]["spans"], got[2]["counters"]
+    coders = [e.graphs for e in got[5]] + [got[6].graphs]
+    cores = sum(s[0] in ("tac.stream.enc.core", "tac.stream.dec.decode")
+                for s in spans)
+    eager = sum(len(g.seen) for g in coders)
+    # Python calls the kernels in an encoder's eager pushes and captures
+    # alone, as often a call as the eager twin does in every push (the
+    # fixed-rate decoders call none); the card launches them in every push
+    # (the profiler drops a few of these kernels' records in a window, so
+    # its count is a lower bound here)
+    enc_cores = sum(s[0] == "tac.stream.enc.core" for s in spans)
+    enc_python = sum(len(g.seen) + len(g.graphs) for g in coders[:-1])
+    for k in want[3]:
+        assert got[3][k] * enc_cores == want[3][k] * enc_python
+    for k in ("water_fill_rows", "scatter_words_rows", "row_matmul",
+              "segment_sums"):
+        assert got[3][k] < got[4][k] <= want[3][k]
+    assert all(len(g.seen) <= streaming.GRAPHS for g in coders)
+    assert 0 < counters["graph_captures"] == sum(len(g.graphs)
+                                                 for g in coders) <= eager
+    assert counters["graph_replays"] == cores - eager > 400
+    for kind in ("capture", "replay"):
+        inside = [spans[s[3]][0] for s in spans
+                  if s[0] == f"tac.stream.graph.{kind}"]
+        assert set(inside) == {"tac.stream.enc.core", "tac.stream.dec.decode"}
+        assert len(inside) == counters[f"graph_{kind}s"]
 
 
 def _corpus_wavs(tmp_path, n=4):

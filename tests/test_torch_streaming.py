@@ -7,7 +7,9 @@ configs; StreamState's bytes are tac's, both ways; one tac encoder's state
 resumes in the port; the StreamDecoder equals the offline decode (exactly
 in parity) under random byte pieces, keeps one half-block of delay and
 refuses an oversize block; chunked fast VBR keeps tac's rate and quality
-contract; and the entry points need a card unless told."""
+contract; the entry points need a card unless told; which coders replay
+their push core as a CUDA graph, and the graphs' bookkeeping on a stand-in
+for the card's graph (tests/test_torch_cuda.py holds the real ones)."""
 
 import hashlib
 import json
@@ -21,6 +23,8 @@ import torch
 
 from tac_torch import api as tapi
 from tac_torch import bitstream as tbs
+from tac_torch import streaming as tstream
+from tac_torch import tracing
 from tac_torch.config import PRESETS as TPRESETS
 from tac_torch.dsp.mdct import num_frames
 from tac_torch.streaming import StreamDecoder, StreamEncoder, StreamState
@@ -291,3 +295,128 @@ def test_stream_entry_points_need_a_card_unless_told(monkeypatch):
     data = StreamEncoder(cfg, device="cpu").header(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StreamDecoder.from_header(data)
+
+
+# (preset, device, precision) → whether its coders replay their push core
+GRAPH_RULE = [
+    ("stereo44-128", "cuda", "fast", True),      # flat, L/R
+    ("mono16-64", "cuda", "fast", True),
+    ("corpus", "cuda", "fast", True),
+    ("streaming-ll", "cuda", "fast", True),      # block switching, L/R
+    ("stereo44-128-ms", "cuda", "fast", True),   # flat, M/S
+    ("ms-bs", "cuda", "fast", True),             # block switching, M/S
+    ("streaming-ll", "cpu", "fast", False),      # the CPU
+    ("ms-bs", "cpu", "fast", False),
+    ("streaming-ll", "cuda", "parity", False),   # parity: a host FFT
+    ("mono16-64", "cuda", "parity", False),
+    ("vbr-huffman", "cuda", "fast", False),      # every Huffman family
+    ("vbr-bs", "cuda", "fast", False),
+    ("vbr-ms", "cuda", "fast", False),
+    ("vbr-ms-bs", "cuda", "fast", False)]
+
+
+@pytest.mark.parametrize("preset, device, precision, want", [
+    pytest.param(*case, id="-".join(case[:3])) for case in GRAPH_RULE])
+def test_graph_rule_reads_config_and_device(preset, device, precision, want):
+    """The graph is chosen for fast precision on a card in every fixed-rate
+    family, L/R and M/S, flat and block switching; the CPU, parity and
+    every Huffman family stay eager, and a CPU coder keeps no graphs."""
+    cfg = TPRESETS[preset].replace(precision=precision)
+    assert tstream.graphed(cfg, torch.device(device)) is want
+    if device == "cpu":
+        assert StreamEncoder(cfg, device="cpu").graphs is None
+        assert StreamDecoder(cfg, device="cpu").graphs is None
+
+
+class _StandInGraph:
+    """A CPU stand-in for a captured graph: the capture runs nothing it
+    keeps, a replay runs the core on the static inputs and writes its
+    outputs into the capture's tensors, as a graph's replay would."""
+
+    def __init__(self, fn, ins):
+        self.fn, self.ins = fn, ins
+        self.outs = tuple(o.clone() for o in fn(*[i.clone() for i in ins]))
+
+    def replay(self):
+        for o, new in zip(self.outs, self.fn(*self.ins)):
+            if o is not new:
+                o.copy_(new)
+
+
+def _pushes(enc, dec, x, sizes, resume_at=None):
+    """x pushed in `sizes`, each push's bytes at once to dec; at push
+    resume_at the encoder's state moves to a fresh encoder (its
+    ``resumed()``) → (bytes, PCM, the encoders used)."""
+    sent, pcm, used, i = [], [], [enc], 0
+    for k, n in enumerate(sizes):
+        if k == resume_at:
+            used.append(used[-1].resumed())
+        sent.append(used[-1].push(x[i:i + n]))
+        pcm.append(dec.push(sent[-1]))
+        i += n
+    sent.append(used[-1].flush())
+    pcm.append(dec.push(sent[-1]))
+    return b"".join(sent), np.concatenate(pcm), used
+
+
+def test_graph_bookkeeping_on_a_stand_in(monkeypatch):
+    """Graphed coders against eager ones on the CPU, the graph stood in for:
+    the same bytes and PCM bit for bit over pushes of 1-3 frames, a resume
+    into a fresh encoder and the flush; a shape captured on its second
+    push, at most one graph a shape, and every push that reaches the core
+    after that a replay."""
+    cfg = TPRESETS["streaming-ll"]
+    h = cfg.n_mdct_lines
+    x = _clip(0.4)
+    rng = np.random.default_rng(15)
+    sizes = [h * int(m) for m in rng.integers(1, 4, 40)]
+    sizes[7] = 100                       # a push that completes no frame
+
+    def make(graphs: bool):
+        monkeypatch.setattr(tstream, "graphed", lambda c, d: graphs)
+        enc = StreamEncoder(cfg, device="cpu")
+        dec = StreamDecoder.from_header(enc.header(0), device="cpu")[0]
+
+        def resumed(e=enc):
+            fresh = StreamEncoder(cfg, device="cpu")
+            fresh.state = StreamState.from_bytes(e.state.to_bytes())
+            fresh.resumed = lambda: resumed(fresh)
+            return fresh
+        enc.resumed = resumed
+        return enc, dec
+
+    monkeypatch.setattr(tstream, "_capture", lambda fn, ins: (
+        (g := _StandInGraph(fn, ins)), g.outs))
+    want = _pushes(*make(False), x, sizes, resume_at=25)
+    enc, dec = make(True)
+    tracing.enable(True)
+    tracing.reset()
+    try:
+        got = _pushes(enc, dec, x, sizes, resume_at=25)
+        snap = tracing.snapshot()
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+        monkeypatch.undo()
+    assert got[0] == want[0]
+    assert got[1].shape == want[1].shape and np.array_equal(got[1], want[1])
+    _check_graph_counts(snap, [e.graphs for e in got[2]] + [dec.graphs])
+
+
+def _check_graph_counts(snap, coders):
+    """Each coder's shapes ran eagerly once (its first push of each), were
+    captured at most once, and every other push that reached a core was a
+    replay, with the graph spans inside the core spans."""
+    spans, counters = snap["spans"], snap["counters"]
+    cores = sum(s[0] in ("tac.stream.enc.core", "tac.stream.dec.decode")
+                for s in spans)
+    eager = sum(len(g.seen) for g in coders)
+    shapes = sum(len(g.graphs) for g in coders)
+    assert all(len(g.seen) <= tstream.GRAPHS for g in coders)
+    assert 0 < counters["graph_captures"] == shapes <= eager
+    assert counters["graph_replays"] == cores - eager
+    for kind in ("capture", "replay"):
+        inside = [spans[s[3]][0] for s in spans
+                  if s[0] == f"tac.stream.graph.{kind}"]
+        assert set(inside) == {"tac.stream.enc.core", "tac.stream.dec.decode"}
+        assert len(inside) == counters[f"graph_{kind}s"]
