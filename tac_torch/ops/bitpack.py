@@ -65,24 +65,24 @@ def _check_capacity(words: np.ndarray, nbits: np.ndarray) -> None:
 
 def rows_to_stream(words: np.ndarray, nbits: np.ndarray) -> bytes:
     """Host finalization into the PAC-T block stream: u16 length prefix per
-    row + payload bytes, rows in storage order. words: uint32[..., W32]."""
+    row + payload bytes, rows in storage order. words: uint32[..., W32],
+    any strides (a swapaxes view is read in place).
+
+    One pass: each row is staged as [prefix, big-endian words] in one
+    uint8 buffer, then one boolean mask keeps each row's first 2 + nbytes
+    bytes."""
     words = np.asarray(words)
     _check_capacity(words, nbits)
-    k = int(np.prod(words.shape[:-1]))
-    flat = words.reshape(k, words.shape[-1]).astype(">u4", order="C") \
-        .view(np.uint8)
-    nbytes = (-(-np.asarray(nbits).reshape(k) // 8)).astype(np.int64)
-    out = np.empty(int(nbytes.sum()) + 2 * k, np.uint8)
-    dst_end = np.cumsum(nbytes + 2)
-    dst_start = dst_end - nbytes
-    le = nbytes.astype("<u2").view(np.uint8).reshape(-1, 2)
-    out[dst_start - 2] = le[:, 0]
-    out[dst_start - 1] = le[:, 1]
-    fid = np.repeat(np.arange(k), nbytes)
-    pos = np.arange(int(nbytes.sum()), dtype=np.int64) \
-        - np.repeat(np.cumsum(nbytes) - nbytes, nbytes)
-    out[dst_start[fid] + pos] = flat[fid, pos]
-    return out.tobytes()
+    lead, w32 = words.shape[:-1], words.shape[-1]
+    k = int(np.prod(lead))
+    stage = np.empty((*lead, 2 + 4 * w32), np.uint8)
+    stage[..., 2:].view(">u4")[...] = words          # byte swap on the copy
+    stage = stage.reshape(k, 2 + 4 * w32)
+    nbytes = -(-np.asarray(nbits).reshape(k) // 8)
+    stage[:, :2] = nbytes.astype("<u2").view(np.uint8).reshape(k, 2)
+    keep = (np.arange(2 + 4 * w32, dtype=np.int32)
+            < (nbytes + 2).astype(np.int32)[:, None])
+    return stage[keep].tobytes()
 
 
 def stream_to_rows(data: bytes, offsets: np.ndarray, lens: np.ndarray,

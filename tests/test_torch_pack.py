@@ -114,6 +114,61 @@ def test_read_fields_and_stream_rows_match_tac(rng):
     np.testing.assert_array_equal(got[:, :-5], vals[:, :-5])
 
 
+def _rows(c, f, w32, lo, hi=None, seed=0):
+    """Random words [F, C, W32], a swapaxes view of [C, F, W32] as the
+    encoders store them, and bit counts [F, C] in [lo, hi]; the words past
+    each row's bits are random too, so a leaked byte shows."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, (c, f, w32), dtype=np.uint64) \
+        .astype(np.uint32)
+    hi = 32 * w32 if hi is None else hi
+    nbits = rng.integers(lo, hi + 1, (c, f))
+    return words.swapaxes(0, 1), nbits.swapaxes(0, 1)
+
+
+def _off_byte(seed):
+    words, nbits = _rows(2, 50, 48, 0, 32 * 48 - 8, seed=seed)
+    return words, nbits | 1                  # never a multiple of 8
+
+
+_STREAM_CASES = {
+    "zero_rows": lambda: (np.zeros((0, 48), np.uint32),
+                          np.zeros(0, np.int64)),
+    "one_row": lambda: _rows(1, 1, 19, 1, seed=1),
+    "swapaxes_view": lambda: _rows(2, 37, 48, 0, seed=2),
+    "nbits_zero": lambda: _rows(2, 9, 48, 0, 0, seed=3),
+    "nbits_not_byte_multiple": lambda: _off_byte(4),
+    "at_capacity": lambda: _rows(2, 11, 48, 32 * 48, seed=5),
+    "flagship": lambda: _rows(2, 647, 48, 32 * 48 * 8 // 10, seed=6),
+    "streaming_ll": lambda: _rows(1, 2585, 19, 32 * 19 * 8 // 10, seed=7),
+    "u16_prefix_wraps": lambda: _rows(1, 1, 16400, 32 * 16400, seed=8),
+}
+
+
+@pytest.mark.parametrize("case", list(_STREAM_CASES))
+def test_rows_to_stream_matches_tac(case):
+    """The one-pass block stream equals tac's, byte for byte: zero rows,
+    a live push's one row, [F, C] views of [C, F] words, empty rows, bit
+    counts off the byte, full rows, both bulk cells' clip sizes, and a row
+    longer than the u16 prefix holds (both wrap it)."""
+    words, nbits = _STREAM_CASES[case]()
+    got = tbp.rows_to_stream(words, nbits)
+    assert got == jbp.rows_to_stream(words, nbits)
+    assert len(got) == 2 * nbits.size + int((-(-nbits // 8)).sum())
+
+
+def test_words_to_stream_matches_tac():
+    """api.words_to_stream on [C, F, W32] int32 tensors (high bits set)
+    equals tac's rows_to_stream on the [F, C] rows."""
+    from tac_torch import api
+
+    words, nbits = _rows(2, 97, 48, 0, seed=9)
+    w = torch.from_numpy(np.ascontiguousarray(words.swapaxes(0, 1))
+                         .view(np.int32))
+    n = torch.from_numpy(np.ascontiguousarray(nbits.swapaxes(0, 1)))
+    assert api.words_to_stream(w, n) == jbp.rows_to_stream(words, nbits)
+
+
 def test_framing_errors_are_typed():
     with pytest.raises(tbs.CorruptStreamError):
         tbs.split_blocks(b"\x05\x00ab", 0, 1)           # payload past the end
