@@ -148,6 +148,8 @@ import time
 
 import numpy as np
 
+from portbench.profiling import spans_over
+
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # CUDA cores, outside the tensor cores
@@ -413,9 +415,9 @@ def per_chunk(fn, *ts, rows: int = 0):
     return lambda: [fn(*c_) for c_ in chunks]
 
 
-def drive_path(xs: np.ndarray, cfg, enc, dec, what: str, card: str):
+def drive_path(xs: np.ndarray, cfg, what: str, card: str):
     """One codec path on clips xs [B, C, T]: the batched device encode and
-    decode (CUDA events), then encode_array -> bytes -> decode_array per
+    decode of cfg's family (CUDA events), then encode_array -> bytes -> decode_array per
     clip; the launch counters are zeroed just before and read just after.
     Checks every decode (shape, finite, SNR), a batched decode against a
     solo decode of the same words (f32 IMDCT matmuls of two batch shapes,
@@ -424,6 +426,8 @@ def drive_path(xs: np.ndarray, cfg, enc, dec, what: str, card: str):
     import torch
 
     from tac_torch import api
+    from tac_torch.family import decode_clip_packed as dec
+    from tac_torch.family import encode_clip_packed as enc
 
     dev = torch.device("cuda")
     xsd = torch.as_tensor(xs, device=dev)
@@ -768,7 +772,7 @@ def inv_stages(xb: np.ndarray, cfg, sizes) -> dict:
     → {stage: tensor [B, C, F, ...]} ([B, C, Kb] for the flags)."""
     import torch
 
-    from tac_torch import bitalloc, codec
+    from tac_torch import bitalloc, codec, family
     from tac_torch import blockswitch as bsw
     from tac_torch import psy
     from tac_torch.ops import row_gemm as k6
@@ -776,14 +780,10 @@ def inv_stages(xb: np.ndarray, cfg, sizes) -> dict:
     dev = torch.device("cuda")
     h = cfg.n_mdct_lines
     bs = cfg.use_block_switch
-    if bs:
-        c = bsw.make_bs_consts(cfg, dev)
-        cl = c.cl
-        frames, states = bsw._frames_and_states(xb, cfg, c, dev)
-    else:
-        c = cl = codec.make_consts(cfg, dev)
-        frames = codec.fb.frame_signal(
-            codec.input_signal(xb, cfg, cl.dtype, dev), h)
+    fam = family.of(cfg)
+    c = fam.make_consts(cfg, dev)
+    cl = c.cl if bs else c
+    frames, states = fam.frame(xb, cfg, c, dev)
     cp = cl.psy
     lead = frames.shape[:-1]
     rows = frames.reshape(-1, frames.shape[-1])
@@ -863,18 +863,6 @@ INV_SETTINGS = (("batch2_first", 2, 0), ("batch8_middle", 8, 3),
                 ("batch16_last", 16, 15))
 
 
-def encode_entry(cfg):
-    """The family's batched packed encode entry."""
-    from tac_torch import blockswitch as bsw
-    from tac_torch import codec
-
-    if cfg.use_block_switch:
-        return (bsw.encode_clip_bs_vbr_packed if cfg.use_huffman
-                else bsw.encode_clip_bs_packed)
-    return (codec.encode_clip_vbr_packed if cfg.use_huffman
-            else codec.encode_clip_packed)
-
-
 def diagnose(cfg, clip: np.ndarray, seed: int) -> dict:
     """Clip [C, T] solo against inside batches of 2, 8 and 16 (first, in
     the middle, last) and as a stream of one- and two-row chunks: per
@@ -885,12 +873,12 @@ def diagnose(cfg, clip: np.ndarray, seed: int) -> dict:
     import torch
 
     from tac_torch import api, codec
+    from tac_torch.family import encode_clip_packed as enc
     from tac_torch.streaming import StreamEncoder
 
     dev = torch.device("cuda")
     fs, h = cfg.sample_rate, cfg.n_mdct_lines
     rng = np.random.default_rng(seed)
-    enc = encode_entry(cfg)
 
     def chunks(n):
         while True:
@@ -1195,9 +1183,7 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
             c0, c1, word0), 50)
         del c0, c1, word0, smr_q, nl_rows
 
-        _, launches_b, path_b = drive_path(
-            xs, cfg_b, bsw.encode_clip_bs_packed, bsw.decode_clip_bs_packed,
-            "bs", card)
+        _, launches_b, path_b = drive_path(xs, cfg_b, "bs", card)
         prof_b = path_b.pop("profile")
     check(all(launches_b[k_] > 0 for k_ in ("water_fill", "scatter_words",
                                             "row_gemm", "segment_sum")),
@@ -1249,9 +1235,7 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
         check(k2c_err == 0, "K2 differs from its plain version at combo shapes")
         del ll, ls, smr_fl, bh_fl, nl_fl, bc, c0, c1, word0, k3_got, k3_want
 
-        words, launches_c, path_c = drive_path(
-            xs, cfg_c, bsw.encode_clip_bs_vbr_packed,
-            bsw.decode_clip_bs_vbr_packed, "bs x vbr", card)
+        words, launches_c, path_c = drive_path(xs, cfg_c, "bs x vbr", card)
         prof_c = path_c.pop("profile")
         check(all(launches_c[k_] > 0
                   for k_ in ("scatter_words", "vbr_scan", "huffdec",
@@ -1317,7 +1301,7 @@ def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
     Returns per kernel what this phase measured."""
     import torch
 
-    from tac_torch import bitalloc, codec
+    from tac_torch import bitalloc, codec, family
     from tac_torch import blockswitch as bsw
     from tac_torch.config import PRESETS
     from tac_torch.ops import alloc as k1
@@ -1427,9 +1411,9 @@ def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
             wf, mant_start, m_line, tids, raw, huff), 20)
         return share
 
-    def path(fam, xs_, cfg, enc, dec, need, extra):
+    def path(fam, xs_, cfg, need, extra):
         """Drive the family's path and print its ms_path line."""
-        _, launches, rec = drive_path(xs_, cfg, enc, dec, fam, card)
+        _, launches, rec = drive_path(xs_, cfg, fam, card)
         need = (*need, "row_gemm", "segment_sum")
         check(all(launches[k_] > 0 for k_ in need),
               f"a kernel of the {fam} path was never launched")
@@ -1477,8 +1461,8 @@ def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
             rows=ch // 2), 50)
         k2_case("ms", fields0, codec.payload_capacity_bits(cfg, c))
         del smr_j, fields0, code
-    rec = path("ms", x, cfg, codec.encode_clip_packed, codec.decode_clip_packed,
-               ("water_fill", "scatter_words"), {"config": "stereo44-128-ms fast"})
+    rec = path("ms", x, cfg, ("water_fill", "scatter_words"),
+               {"config": "stereo44-128-ms fast"})
     print(json.dumps({"ms_vs_lr": {"family": "ms", **vs_lr(rec, "stereo44-128")}}))
 
     # ---- vbr-ms: K3 with 16 pair lanes x 50 bands, K2, K4
@@ -1498,12 +1482,10 @@ def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
         k2_case("vbr_ms", codec.payload_fields_vbr(code, tid_rows[:ch], cfg, c),
                 codec.payload_capacity_bits(cfg, c))
         del lines, smr, bh, got, al_rows, tid_rows, code
-    rec = path("vbr-ms", x, cfg, codec.encode_clip_vbr_packed,
-               codec.decode_clip_vbr_packed,
-               ("scatter_words", "vbr_scan", "huffdec"),
+    rec = path("vbr-ms", x, cfg, ("scatter_words", "vbr_scan", "huffdec"),
                {"config": "vbr-ms fast", "lanes": x.shape[0]})
     with torch.no_grad():
-        words = codec.encode_clip_vbr_packed(xd, cfg, dev)[0]
+        words = family.encode_clip_packed(xd, cfg, dev)[0]
         _, tids, _, _, m_line, mant_start = codec._vbr_head(
             words.reshape(-1, words.shape[-1]).contiguous(), cfg, c)
         share = k4_case("vbr_ms", words, (tids, m_line, mant_start), c.huff)
@@ -1542,8 +1524,7 @@ def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
         k1_case("ms_bs", smr_j, nl_j, 2 * cb.cl.budget)
         k2_case("ms_bs", fields0, bsw.capacity_bits_bs(cfg))
         del smr_j, nl_j, fields0, bc
-    path("ms-bs", xs, cfg, bsw.encode_clip_bs_packed, bsw.decode_clip_bs_packed,
-         ("water_fill", "scatter_words"),
+    path("ms-bs", xs, cfg, ("water_fill", "scatter_words"),
          {"config": "ms-bs fast", "state_share": state_share})
 
     # ---- vbr-ms-bs: K3 with per-frame widths [F, P, 50], K2, K4
@@ -1566,11 +1547,10 @@ def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
         k2_case("vbr_ms_bs", bsw.payload_fields_bs_vbr(bc, tid_rows[:ch], cfg, cc),
                 bsw.capacity_bits_bs_vbr(cfg))
         del ll, ls, smr, bh, nl, got, al_rows, tid_rows, st_rows, bc
-    path("vbr-ms-bs", xs, cfg, bsw.encode_clip_bs_vbr_packed,
-         bsw.decode_clip_bs_vbr_packed, ("scatter_words", "vbr_scan", "huffdec"),
+    path("vbr-ms-bs", xs, cfg, ("scatter_words", "vbr_scan", "huffdec"),
          {"config": "vbr-ms-bs fast", "lanes": xs.shape[0]})
     with torch.no_grad():
-        words = bsw.encode_clip_bs_vbr_packed(xsd, cfg, dev)[0]
+        words = family.encode_clip_packed(xsd, cfg, dev)[0]
         _, _, tids, _, _, m_line, mant_start = bsw._bs_vbr_head(
             words.reshape(-1, words.shape[-1]).contiguous(), cfg, cc)
         k4_case("vbr_ms_bs", words, (tids, m_line, mant_start), cc.cl.huff)
@@ -2190,56 +2170,6 @@ CORPUS_STEREO, CORPUS_MONO = 56, 8
 LADDER = (8, 16, 32, 64)
 
 
-class Spans:
-    """Wall-clock intervals of calls to wrapped functions (any thread);
-    ``wall()`` is the length of their union: the time the job spent in
-    at least one such call."""
-
-    def __init__(self):
-        import threading
-
-        self.lock = threading.Lock()
-        self.spans = []
-        self.calls = 0
-
-    def wrap(self, fn):
-        def timed_call(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                with self.lock:
-                    self.spans.append((t0, time.perf_counter()))
-                    self.calls += 1
-        return timed_call
-
-    def wall(self) -> float:
-        total, end = 0.0, -np.inf
-        for a, b in sorted(self.spans):
-            if b > end:
-                total += b - max(a, end)
-                end = b
-        return total
-
-
-@contextlib.contextmanager
-def spans_over(targets: list):
-    """For the length of the block, wrap each (object, attribute, kind) of
-    targets with the wall-clock spans of its kind (a staticmethod stays
-    one); yields {kind: Spans}."""
-    spans = {kind: Spans() for _, _, kind in targets}
-    old = [obj.__dict__[name] for obj, name, _ in targets]
-    for (obj, name, kind), fn in zip(targets, old):
-        static = isinstance(fn, staticmethod)
-        wrapped = spans[kind].wrap(fn.__func__ if static else fn)
-        setattr(obj, name, staticmethod(wrapped) if static else wrapped)
-    try:
-        yield spans
-    finally:
-        for (obj, name, _), fn in zip(targets, old):
-            setattr(obj, name, fn)
-
-
 def corpus_targets(corpus) -> list:
     """The corpus jobs' file I/O and per-clip fallbacks, for spans_over."""
     return [(corpus.CorpusTranscoder, "_safe_read", "read"),
@@ -2381,7 +2311,7 @@ def phase_corpus(card: str) -> dict:
 
     import torch
 
-    from tac_torch import api, cli, consts, corpus, tuning
+    from tac_torch import api, cli, consts, corpus, family, tuning
     from tac_torch.config import PRESETS
     from tac_torch.io.wav import read_wav, write_wav
 
@@ -2600,7 +2530,7 @@ def phase_corpus(card: str) -> dict:
 
         # zero frames decode to silence through K4
         cv = PRESETS["vbr-huffman"]
-        zeros = np.zeros((2, 2, 32, api.payload_words(cv)), np.int32)
+        zeros = np.zeros((2, 2, 32, family.payload_words(cv)), np.int32)
         before = counters["huffdec"].launches
         y = corpus.parallel.decode_batch_packed(
             zeros, cv, 31 * cv.n_mdct_lines, pcm16=True)
@@ -3148,7 +3078,7 @@ def main(argv=None) -> int:
     if args.mesh_rank is not None:
         return mesh_rank(args.mesh_rank, args.mesh_world, args.mesh_init,
                          args.mesh_root, args.mesh_backend)
-    from tac_torch import _build, api, bitalloc, codec
+    from tac_torch import _build, api, bitalloc, codec, family
     from tac_torch import huffman as hf
     from tac_torch.config import PRESETS
     from tac_torch.ops import alloc as k1
@@ -3307,7 +3237,7 @@ def main(argv=None) -> int:
 
     # ---- 4. main path: counters zeroed just before, read just after
     def encode():
-        return codec.encode_clip_packed(xd, cfg, dev)
+        return family.encode_clip_packed(xd, cfg, dev)
 
     encode()                                            # warm (caches)
     main_counters = kernel_counters()
@@ -3471,7 +3401,7 @@ def main(argv=None) -> int:
 
     # ---- K4 at the VBR run's shapes: the words the VBR encode produces
     def encode_v():
-        return codec.encode_clip_vbr_packed(xd, cfg_v, dev)
+        return family.encode_clip_packed(xd, cfg_v, dev)
 
     with torch.no_grad():
         words_v, nbits_v = encode_v()               # also warms the path
@@ -3566,7 +3496,7 @@ def main(argv=None) -> int:
     counters = kernel_counters()
     zero_counters(counters)
     (words_v, nbits_v), enc_v_ms = timed(encode_v)
-    y_batch, dec_v_ms = timed(lambda: codec.decode_clip_vbr_packed(
+    y_batch, dec_v_ms = timed(lambda: family.decode_clip_packed(
         words_v, cfg_v, x.shape[-1], dev))
     t0 = time.perf_counter()
     streams_v = [api.encode_array(x[i].T, cfg_v) for i in range(CLIPS)]
@@ -3583,7 +3513,7 @@ def main(argv=None) -> int:
     snrs_v = decode_checks(x, decoded_v, "VBR")
     # the batched decode against a solo decode of the same words (clip 0);
     # f32 IMDCT matmuls of two batch shapes: within 1e-5
-    y0 = codec.decode_clip_vbr_packed(words_v[0], cfg_v, x.shape[-1], dev)
+    y0 = family.decode_clip_packed(words_v[0], cfg_v, x.shape[-1], dev)
     check(float((y0 - y_batch[0]).abs().max()) < 1e-5,
           "batched VBR decode differs from the solo decode of the same words")
     snr_batch = decode_checks(x, y_batch.cpu().numpy().swapaxes(1, 2),

@@ -2,7 +2,7 @@
 every stream family: fixed-rate or Huffman VBR, with or without block
 switching, L/R or mid/side).
 
-The device pipeline (tac_torch.codec) produces packed payload words; the
+The device pipeline (tac_torch.family) produces packed payload words; the
 host adds the PAC-T header and the u16-prefixed block framing. Entry points
 run on CUDA unless the caller passes another device (``device="cpu"`` runs
 the plain PyTorch path); without a card and without ``device``, they raise.
@@ -19,9 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tac_torch import bands, codec
+from tac_torch import bands, family
 from tac_torch import bitstream as bs
-from tac_torch import blockswitch as bsw
 from tac_torch import huffman as hf
 from tac_torch import tracing
 from tac_torch.codec import FrameCode
@@ -29,7 +28,6 @@ from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.dsp.mdct import num_frames
 from tac_torch.io.wav import read_wav, write_wav
 from tac_torch.ops.bitpack import rows_to_stream, stream_to_rows
-from tac_torch.parallel import packed_encoder
 
 _B = bands.N_BANDS
 
@@ -150,16 +148,33 @@ def encode_array(x: np.ndarray, cfg: CodecConfig, device=None) -> bytes:
                 f"stereo_mode='ms' requires even channel count, got {c}")
         cfg = cfg.replace(n_channels=c)
     with tracing.span("tac.encode"):
-        words, nbits = packed_encoder(cfg)(x.T, cfg, device)
+        words, nbits = family.encode_clip_packed(x.T, cfg, device)
         return stream_header(cfg, t) + words_to_stream(words, nbits)
 
 
 def words_to_stream(words, nbits) -> bytes:
     """Payload words int32 [C, F, W32] and bit counts [C, F] (tensors) → the
-    u16-prefixed block stream, block-major and channel-minor ([F, C])."""
+    u16-prefixed block stream (``host_words_to_stream``)."""
     with tracing.span("tac.api.serialize"):
-        w = tracing.to_host(words).numpy().view(np.uint32).swapaxes(0, 1)
-        return rows_to_stream(w, tracing.to_host(nbits).numpy().swapaxes(0, 1))
+        return host_words_to_stream(
+            tracing.to_host(words).numpy().view(np.uint32),
+            tracing.to_host(nbits).numpy())
+
+
+def host_words_to_stream(words: np.ndarray, nbits: np.ndarray) -> bytes:
+    """Payload words uint32 [C, F, W32] and bit counts [C, F] (host arrays,
+    any strides) → the u16-prefixed block stream, block-major and
+    channel-minor ([F, C])."""
+    return rows_to_stream(words.swapaxes(0, 1), nbits.swapaxes(0, 1))
+
+
+def stream_words(data: bytes, offs, lens, c: int, w32: int) -> np.ndarray:
+    """The payloads at (offs, lens) of a stream, whole frames of c blocks
+    in its block-major, channel-minor order → payload words uint32
+    [c, F, w32]. Raises CorruptStreamError on a block longer than the
+    capacity."""
+    rows = stream_to_rows(data, offs, lens, w32)
+    return np.ascontiguousarray(rows.reshape(-1, c, w32).swapaxes(0, 1))
 
 
 def stream_header(cfg: CodecConfig, num_samples: int) -> bytes:
@@ -194,17 +209,6 @@ def header_config(hdr: bs.PacHeader, precision: str = "fast") -> CodecConfig:
         use_psy=False, precision=precision)
 
 
-def payload_words(cfg: CodecConfig) -> int:
-    """W32: the 32-bit words of one (block, channel) payload at the
-    family's capacity (host arithmetic, no constants)."""
-    if cfg.use_block_switch:
-        cap = (bsw.capacity_bits_bs_vbr(cfg) if cfg.use_huffman
-               else bsw.capacity_bits_bs(cfg))
-    else:
-        cap = codec.payload_capacity_bits(cfg)
-    return -(-cap // 32)
-
-
 def _decode_blocks(data: bytes, off: int, hdr: bs.PacHeader, cfg: CodecConfig,
                    fa: int, fb: int, t: int, device):
     """Frames [fa, fb) of a stream → [C, t] audio: t ≤ (fb-fa-1)·H samples
@@ -212,13 +216,9 @@ def _decode_blocks(data: bytes, off: int, hdr: bs.PacHeader, cfg: CodecConfig,
     f = num_frames(hdr.num_samples, hdr.n_mdct_lines)
     c = cfg.n_channels
     offs, lens = bs.split_blocks(data, off, f * c)
-    w32 = payload_words(cfg)
-    rows = stream_to_rows(data, offs[fa * c:fb * c], lens[fa * c:fb * c], w32)
-    words = np.ascontiguousarray(rows.reshape(fb - fa, c, w32).swapaxes(0, 1))
-    decoder, make = codec.frame_decoder(cfg)
-    consts = make(cfg, resolve_device(device))
-    return codec.output_signal(decoder(words.view(np.int32), cfg, consts),
-                               cfg, t)
+    words = stream_words(data, offs[fa * c:fb * c], lens[fa * c:fb * c], c,
+                         family.payload_words(cfg))
+    return family.decode_clip_packed(words.view(np.int32), cfg, t, device)
 
 
 def decode_array(data: bytes, precision: str = "parity", device=None

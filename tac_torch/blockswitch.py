@@ -371,7 +371,7 @@ def capacity_bits_bs_vbr(cfg: CodecConfig) -> int:
             + _row_budget(cfg) * (1 + cfg.reservoir_factor) + 32)
 
 
-# ----------------------------------------------------- fixed-rate entries ---
+# ---------------------------------------------------- framing, fixed rate ---
 
 def _frames_and_states(x, cfg: CodecConfig, c: BsConsts, dev):
     """x [..., C, T] → (frames f[..., C, F, N], states int32 [..., C, F]).
@@ -386,6 +386,35 @@ def _frames_and_states(x, cfg: CodecConfig, c: BsConsts, dev):
     fp = flags.reshape(*flags.shape[:-2], -1, 2, flags.shape[-1])
     states = window_states(fp[..., 0, :] | fp[..., 1, :], frames.shape[-2])
     return frames, states.repeat_interleave(2, dim=-2)
+
+
+def ms_stream_prep(seq, t_hist, cfg: CodecConfig, c: BsConsts):
+    """The streaming framing of the block-switch families, the front half
+    of their streaming core (tac/blockswitch.py:_ms_stream_prep, and its L/R
+    form).
+
+    With e the next frame to emit and h_j the half-block of samples
+    [jH, (j+1)H): seq [C, m+2, H] = (h_{e-1}, h_e, h_{e+1..e+m}), the prior
+    half, the lookahead and m new halves (L/R, in the codec's float type),
+    and t_hist bool [L, 2] = (t_{e-2}, t_{e-1}) per channel, or per pair
+    under M/S, each on the host or on c's device → (frames f[C, m, N] of
+    frame j = [h_{j-1} | h_j], butterflied under M/S; states int32 [C, m],
+    a pair's two channels sharing the state of their OR-ed flags; t bool
+    [L, m+3] = (t_{e-2}, ..., t_{e+m}), whose columns m and m+1 are the
+    next t_hist)."""
+    dev = c.cl.window.device
+    seq = tracing.upload(seq, dev)
+    ch, m = seq.shape[0], seq.shape[1] - 2
+    ms = cfg.stereo_mode == "ms"
+    if ms:
+        seq = codec.ms_forward(seq.reshape(ch, -1)).reshape(seq.shape)
+    frames = torch.cat([seq[:, :m], seq[:, 1:m + 1]], dim=-1)
+    flags = transient_flags(seq[:, 1:].reshape(ch, -1), cfg)   # t_{e..e+m}
+    if ms:
+        flags = flags[0::2] | flags[1::2]
+    t = torch.cat([tracing.upload(t_hist, dev), flags], dim=1)
+    states = stream_states(t, m)
+    return frames, (states.repeat_interleave(2, dim=0) if ms else states), t
 
 
 def lane_states(states: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
@@ -423,17 +452,6 @@ def encode_frames_bs(frames, states, cfg: CodecConfig, c: BsConsts):
     return words, nbits
 
 
-def encode_clip_bs_packed(x, cfg: CodecConfig, device=None):
-    """Fixed-rate block-switch encode + bit pack on the device. x: float
-    [..., C, T] → (words int32 [..., C, F, W32] holding 32-bit patterns,
-    nbits int64 [..., C, F])."""
-    dev = resolve_device(device)
-    c = make_bs_consts(cfg, dev)
-    with tracing.span("tac.codec.analysis"):
-        frames, states = _frames_and_states(x, cfg, c, dev)
-    return encode_frames_bs(frames, states, cfg, c)
-
-
 def _bs_code(state, ovs, alloc_code, sf, mant) -> BsFrameCode:
     fc = FrameCode(ovs=ovs, alloc_code=alloc_code, scale=sf, mant=mant)
     return BsFrameCode(state=state, long=fc, short=fc)
@@ -462,13 +480,6 @@ def _decode_frames(words, cfg: CodecConfig, c: BsConsts, unpack):
     w = tracing.upload(words, c.cl.window.device)
     bc = unpack(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
     return decode_frame_bs(bc, cfg, c).reshape(*w.shape[:-1], -1)
-
-
-def decode_clip_bs_packed(words, cfg: CodecConfig, t: int, device=None):
-    """words: int32 [..., C, F, W32] block-switch payload rows → [..., C, T]
-    audio, on `device` (CUDA unless named)."""
-    c = make_bs_consts(cfg, resolve_device(device))
-    return codec.output_signal(decode_frames_bs(words, cfg, c), cfg, t)
 
 
 def encode_clip_bs(x, cfg: CodecConfig, device=None) -> BsFrameCode:
@@ -600,72 +611,6 @@ def encode_frames_bs_vbr(frames, states, res0, cfg: CodecConfig,
     return codec.from_lanes(words, lead), codec.from_lanes(nbits, lead), ress
 
 
-def encode_clip_bs_vbr_packed(x, cfg: CodecConfig, device=None):
-    """Huffman × block-switch encode + pack on the device. x: float
-    [..., C, T] → (words int32 [..., C, F, W32], nbits int64 [..., C, F]).
-    Every channel (or M/S pair) of every clip is its own reservoir lane
-    from fill 0."""
-    dev = resolve_device(device)
-    c = make_bs_consts(cfg, dev)
-    with tracing.span("tac.codec.analysis"):
-        frames, states = _frames_and_states(x, cfg, c, dev)
-    res0 = torch.zeros(codec.n_lanes(frames.shape[:-2], cfg),
-                       dtype=torch.int32, device=dev)
-    return encode_frames_bs_vbr(frames, states, res0, cfg, c)[:2]
-
-
-# ------------------------------------------------ streaming frame cores ---
-
-def ms_stream_prep(seq, t_hist, cfg: CodecConfig, c: BsConsts):
-    """The front half of every block-switch streaming core
-    (tac/blockswitch.py:_ms_stream_prep, and its L/R form).
-
-    With e the next frame to emit and h_j the half-block of samples
-    [jH, (j+1)H): seq [C, m+2, H] = (h_{e-1}, h_e, h_{e+1..e+m}), the prior
-    half, the lookahead and m new halves (L/R, in the codec's float type),
-    and t_hist bool [L, 2] = (t_{e-2}, t_{e-1}) per channel, or per pair
-    under M/S, each on the host or on c's device → (frames f[C, m, N] of
-    frame j = [h_{j-1} | h_j], butterflied under M/S; states int32 [C, m],
-    a pair's two channels sharing the state of their OR-ed flags; t bool
-    [L, m+3] = (t_{e-2}, ..., t_{e+m}), whose columns m and m+1 are the
-    next t_hist)."""
-    dev = c.cl.window.device
-    seq = tracing.upload(seq, dev)
-    ch, m = seq.shape[0], seq.shape[1] - 2
-    ms = cfg.stereo_mode == "ms"
-    if ms:
-        seq = codec.ms_forward(seq.reshape(ch, -1)).reshape(seq.shape)
-    frames = torch.cat([seq[:, :m], seq[:, 1:m + 1]], dim=-1)
-    flags = transient_flags(seq[:, 1:].reshape(ch, -1), cfg)   # t_{e..e+m}
-    if ms:
-        flags = flags[0::2] | flags[1::2]
-    t = torch.cat([tracing.upload(t_hist, dev), flags], dim=1)
-    states = stream_states(t, m)
-    return frames, (states.repeat_interleave(2, dim=0) if ms else states), t
-
-
-def encode_frames_bs_packed(seq, t_hist, cfg: CodecConfig, c: BsConsts):
-    """Streaming block-switch core, fixed rate (tac/blockswitch.py:
-    _encode_frames_bs_packed and its M/S form): one frame per new half, the
-    halves and flags as ``ms_stream_prep`` takes them → (words int32
-    [C, m, W32], nbits int64 [C, m], t bool [L, m+3])."""
-    with tracing.span("tac.codec.analysis"):
-        frames, states, t = ms_stream_prep(seq, t_hist, cfg, c)
-    return (*encode_frames_bs(frames, states, cfg, c), t)
-
-
-def encode_frames_bs_vbr_packed(seq, t_hist, res0, cfg: CodecConfig,
-                                c: BsConsts):
-    """Streaming Huffman × block-switch core (tac/blockswitch.py:
-    _encode_frames_bs_vbr_packed and its M/S form): as
-    ``encode_frames_bs_packed``, plus the carried fills res0 int32 [L] →
-    (words, nbits, t, res int32 [L, m])."""
-    with tracing.span("tac.codec.analysis"):
-        frames, states, t = ms_stream_prep(seq, t_hist, cfg, c)
-    words, nbits, ress = encode_frames_bs_vbr(frames, states, res0, cfg, c)
-    return words, nbits, t, ress
-
-
 def _bs_vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: BsConsts):
     """The head of int32 [K, W32] combo rows → (state, ovs, tid [K],
     alloc_code, scale [K, B], m_line int32 [K, H] under the row's state,
@@ -694,10 +639,3 @@ def decode_frames_bs_vbr(words, cfg: CodecConfig, c: BsConsts):
     """words: int32 [..., W32] combo payload rows → [..., N] windowed frame
     audio, before the overlap-add."""
     return _decode_frames(words, cfg, c, _unpack_bs_vbr_fields)
-
-
-def decode_clip_bs_vbr_packed(words, cfg: CodecConfig, t: int, device=None):
-    """words: int32 [..., C, F, W32] combo payload rows → [..., C, T] audio,
-    on `device` (CUDA unless named)."""
-    c = make_bs_consts(cfg, resolve_device(device))
-    return codec.output_signal(decode_frames_bs_vbr(words, cfg, c), cfg, t)

@@ -296,18 +296,6 @@ def encode_frames_packed(frames, cfg: CodecConfig, c: CodecConsts):
     return words, nbits
 
 
-def encode_clip_packed(x, cfg: CodecConfig, device=None):
-    """x: float [..., C, T] (array or tensor) → (words int32 [..., C, F, W32]
-    holding 32-bit patterns, nbits int64 [..., C, F]), on `device` (CUDA
-    unless named)."""
-    dev = resolve_device(device)
-    c = make_consts(cfg, dev)
-    with tracing.span("tac.codec.analysis"):
-        frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
-                                 cfg.n_mdct_lines)
-    return encode_frames_packed(frames, cfg, c)
-
-
 def _leaves(parts: list, lead: tuple):
     """Per-chunk NamedTuples of [R_i, ...] leaves → one of [*lead, ...]."""
     return type(parts[0])(*(
@@ -343,8 +331,6 @@ def decode_clip(code: FrameCode, cfg: CodecConfig, t: int, device=None):
     return fb.overlap_add(y, cfg.n_mdct_lines, t)
 
 
-# ------------------------------------------- frame-level streaming cores ---
-
 def frames_from_halves(seq, cfg: CodecConfig, c: CodecConsts):
     """seq [C, m+1, H]: the prior half and m new halves h_0..h_{m-1} (L/R,
     in the codec's float type; on the host or on c's device) → frames
@@ -355,16 +341,6 @@ def frames_from_halves(seq, cfg: CodecConfig, c: CodecConsts):
     if cfg.stereo_mode == "ms":
         seq = ms_forward(seq.reshape(seq.shape[0], -1)).reshape(seq.shape)
     return torch.cat([seq[:, :-1], seq[:, 1:]], dim=-1)
-
-
-def encode_frames_packed_halves(seq, cfg: CodecConfig, c: CodecConsts):
-    """Streaming fixed-rate core (tac/codec.py:_encode_frames_packed_halves
-    and its M/S form): the prior half and m new halves seq [C, m+1, H], as
-    ``frames_from_halves`` takes them → (words int32 [C, m, W32], nbits
-    int64 [C, m]), through the offline row path."""
-    with tracing.span("tac.codec.analysis"):
-        frames = frames_from_halves(seq, cfg, c)
-    return encode_frames_packed(frames, cfg, c)
 
 
 @functools.cache
@@ -419,42 +395,6 @@ def decode_frames_packed(words, cfg: CodecConfig, c: CodecConsts):
     w = tracing.upload(words, c.window.device)
     code = _unpack_raw_fields(w.reshape(-1, w.shape[-1]), cfg, c)
     return decode_frame(code, cfg, c).reshape(*w.shape[:-1], -1)
-
-
-def decode_clip_packed(words, cfg: CodecConfig, t: int, device=None):
-    """words: int32 [..., C, F, W32] payload rows (32-bit patterns) →
-    [..., C, T] audio, on `device` (CUDA unless named)."""
-    c = make_consts(cfg, resolve_device(device))
-    return output_signal(decode_frames_packed(words, cfg, c), cfg, t)
-
-
-def frame_decoder(cfg: CodecConfig):
-    """The family's frame decoder (words [..., W32], cfg, consts) →
-    [..., N], and the constants it takes on a device: (decoder,
-    make_consts)."""
-    if cfg.use_block_switch:
-        from tac_torch import blockswitch as bsw
-
-        return ((bsw.decode_frames_bs_vbr if cfg.use_huffman
-                 else bsw.decode_frames_bs), bsw.make_bs_consts)
-    return ((decode_frames_vbr if cfg.use_huffman else decode_frames_packed),
-            make_consts)
-
-
-def decode_frames_stream(words, tail, cfg: CodecConfig, c):
-    """Streaming decode core (tac/codec.py:_decode_frames_stream): words
-    int32 [C, m, W32] of m ≥ 1 frames and the carried second half of the
-    frame before them, tail f[C, H] (mid/side under M/S) → (out [C, m, H],
-    the finished samples of each frame's first half, L/R; the new tail
-    [C, H]). c is the family's constants (``frame_decoder``)."""
-    h = cfg.n_mdct_lines
-    y = frame_decoder(cfg)[0](words, cfg, c)       # [C, m, 2H]
-    firsts, seconds = y[..., :h], y[..., h:]
-    # the operand order of fb.overlap_add: first half + previous second
-    out = firsts + torch.cat([tail.to(y)[:, None], seconds[:, :-1]], dim=1)
-    if cfg.stereo_mode == "ms":                    # per sample: commutes
-        out = ms_inverse(out.reshape(out.shape[0], -1)).reshape(out.shape)
-    return out, seconds[:, -1]
 
 
 # ----------------------------------------------------------- VBR (huffman) --
@@ -678,34 +618,6 @@ def encode_frames_vbr_packed(frames, res0, cfg: CodecConfig, c: CodecConsts):
     return from_lanes(words, lead), from_lanes(nbits, lead), ress
 
 
-def encode_clip_vbr_packed(x, cfg: CodecConfig, device=None):
-    """VBR encode + Huffman field pack on the device. x: float [..., C, T]
-    → (words int32 [..., C, F, W32], nbits int64 [..., C, F]). All leading
-    axes flatten into reservoir lanes (each channel, or each M/S pair, its
-    own chain from fill 0), so a batch gives each clip the bytes of a solo
-    encode."""
-    dev = resolve_device(device)
-    c = make_consts(cfg, dev)
-    with tracing.span("tac.codec.analysis"):
-        frames = fb.frame_signal(input_signal(x, cfg, c.dtype, dev),
-                                 cfg.n_mdct_lines)
-    res0 = torch.zeros(n_lanes(frames.shape[:-2], cfg), dtype=torch.int32,
-                       device=dev)
-    return encode_frames_vbr_packed(frames, res0, cfg, c)[:2]
-
-
-def encode_frames_vbr_packed_halves(seq, res0, cfg: CodecConfig,
-                                    c: CodecConsts):
-    """Streaming VBR core (tac/codec.py:_encode_frames_vbr_packed and its
-    M/S form): (the prior half and m new halves seq [C, m+1, H], as
-    ``frames_from_halves`` takes them; the carried fills res0 int32 [L] of
-    the C channels' or C/2 pairs' lanes) → (words int32 [C, m, W32], nbits
-    int64 [C, m], res int32 [L, m])."""
-    with tracing.span("tac.codec.analysis"):
-        frames = frames_from_halves(seq, cfg, c)
-    return encode_frames_vbr_packed(frames, res0, cfg, c)
-
-
 def _vbr_head(wf: torch.Tensor, cfg: CodecConfig, c: CodecConsts):
     """The head of int32 [K, W32] VBR payload rows (SPEC.md §7 huffman
     layout) → (ovs [K], tid [K], alloc_code [K, B], scale [K, B], m_line
@@ -735,10 +647,3 @@ def decode_frames_vbr(words, cfg: CodecConfig, c: CodecConsts):
     w = tracing.upload(words, c.window.device)
     code = _unpack_vbr_fields(w.reshape(-1, w.shape[-1]).contiguous(), cfg, c)
     return decode_frame(code, cfg, c).reshape(*w.shape[:-1], -1)
-
-
-def decode_clip_vbr_packed(words, cfg: CodecConfig, t: int, device=None):
-    """words: int32 [..., C, F, W32] VBR payload rows (32-bit patterns) →
-    [..., C, T] audio, on `device` (CUDA unless named)."""
-    c = make_consts(cfg, resolve_device(device))
-    return output_signal(decode_frames_vbr(words, cfg, c), cfg, t)

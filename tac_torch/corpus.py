@@ -41,12 +41,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tac_torch import api, parallel, tracing, tuning
+from tac_torch import api, family, parallel, tracing, tuning
 from tac_torch import bitstream as bs
 from tac_torch.config import CodecConfig, resolve_device
 from tac_torch.dsp.mdct import num_frames
 from tac_torch.io.wav import read_wav, write_wav
-from tac_torch.ops.bitpack import rows_to_stream, stream_to_rows
 
 
 def _bucket_len(t: int, h: int) -> int:
@@ -231,8 +230,8 @@ class CorpusTranscoder(_Job):
         out = []
         for i, c in enumerate(clips):
             f = num_frames(c.shape[0], h)
-            out.append(rows_to_stream(w_np[i, :, :f].swapaxes(0, 1),
-                                      n_np[i, :, :f].swapaxes(0, 1)))
+            out.append(api.host_words_to_stream(w_np[i, :, :f],
+                                                n_np[i, :, :f]))
         return out
 
     def _encode_one(self, x: np.ndarray,
@@ -323,11 +322,9 @@ class CorpusDecoder(_Job):
         cfg = api.header_config(hdr, self.precision)
         f = num_frames(hdr.num_samples, hdr.n_mdct_lines)
         c = hdr.n_channels
-        w32 = api.payload_words(cfg)
         offs, lens = bs.split_blocks(data, off, f * c)
-        rows = stream_to_rows(data, offs, lens, w32)
-        return hdr, cfg, np.ascontiguousarray(
-            rows.reshape(f, c, w32).swapaxes(0, 1))
+        return hdr, cfg, api.stream_words(data, offs, lens, c,
+                                          family.payload_words(cfg))
 
     def _decode_batch(self, staged: list, shard: bool = True) -> list:
         """staged: (hdr, cfg, rows [C, F_i, W32]) sharing one cfg → per-clip

@@ -1,8 +1,8 @@
 """Batched corpus encode and decode on one device, and sharded across
 processes (counterpart of tac/parallel.py).
 
-Every packed encoder and decoder of the port takes leading axes ([..., C,
-T] and [..., C, F, W32]): the fixed-rate and block-switch families flatten
+The packed encoder and decoder (``family``) take leading axes ([..., C, T]
+and [..., C, F, W32]): the fixed-rate and block-switch families flatten
 them into one frame-row axis, the VBR families into reservoir lanes (each
 channel, or each mid/side pair, of each clip its own chain from fill 0),
 so a batch [B, C, T] gives every clip the words of a solo encode.
@@ -41,8 +41,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from tac_torch import blockswitch as bsw
-from tac_torch import codec, tracing
+from tac_torch import codec, family, tracing
 from tac_torch.codec import FrameCode
 from tac_torch.config import CodecConfig, resolve_device
 
@@ -56,30 +55,12 @@ def encode_batch(x, cfg: CodecConfig, device=None) -> FrameCode:
     return codec.encode_clip(x, cfg, device)
 
 
-def packed_encoder(cfg: CodecConfig):
-    """The packed-encode entry of cfg's stream family."""
-    if cfg.use_block_switch:
-        return (bsw.encode_clip_bs_vbr_packed if cfg.use_huffman
-                else bsw.encode_clip_bs_packed)
-    return (codec.encode_clip_vbr_packed if cfg.use_huffman
-            else codec.encode_clip_packed)
-
-
-def _packed_decoder(cfg: CodecConfig):
-    """The packed-decode entry of cfg's stream family."""
-    if cfg.use_block_switch:
-        return (bsw.decode_clip_bs_vbr_packed if cfg.use_huffman
-                else bsw.decode_clip_bs_packed)
-    return (codec.decode_clip_vbr_packed if cfg.use_huffman
-            else codec.decode_clip_packed)
-
-
 def encode_batch_packed(x, cfg: CodecConfig, device=None):
     """Batched packed encode on `device` (CUDA unless named). x: float
     [B, C, T] → (words int32 [B, C, F, W32] holding 32-bit patterns, nbits
     int64 [B, C, F])."""
     with tracing.span("tac.encode"):
-        return packed_encoder(cfg)(x, cfg, device)
+        return family.encode_clip_packed(x, cfg, device)
 
 
 def to_pcm16(y: torch.Tensor) -> torch.Tensor:
@@ -94,7 +75,7 @@ def decode_batch_packed(words, cfg: CodecConfig, t: int,
     rows int32 [B, C, F, W32] → [B, C, T] on `device` (CUDA unless named).
     The family comes from cfg. pcm16=True quantizes to int16 on the device
     (``to_pcm16``)."""
-    y = _packed_decoder(cfg)(words, cfg, t, device)
+    y = family.decode_clip_packed(words, cfg, t, device)
     return to_pcm16(y) if pcm16 else y
 
 

@@ -9,7 +9,7 @@ encode mid-stream bit-exactly, and its bytes are those tac writes, so a
 state written by either package resumes in the other.
 
 Every push codes exactly the frames its samples complete, in one call of
-the frame-level cores of ``codec`` / ``blockswitch``, which run the
+the family's streaming core (``family.encode_stream``), which runs the
 offline row paths and their kernels: K1 and K2 per push, K3 resumed from
 the carried fills under VBR. So the stream equals the offline
 ``api.encode_array`` bytes under any push chunking in parity precision;
@@ -41,11 +41,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tac_torch import api, codec, tracing
-from tac_torch import blockswitch as bsw
+from tac_torch import api, codec, family, tracing
 from tac_torch.bitstream import read_header
 from tac_torch.config import CodecConfig, resolve_device
-from tac_torch.ops.bitpack import stream_to_rows
 
 # Push shapes (C, m) of which a coder keeps a CUDA graph: a live stream
 # pushes one or two; shapes past these run eagerly.
@@ -128,20 +126,11 @@ class _PushGraphs:
             return g.replay(args)
 
 
-def _fixed_core(cfg: CodecConfig, c, *args):
-    """The fixed-rate encoder's push core on (seq[, t_hist]) of
-    ``_emit_flat`` / ``_emit_bs``, host or device tensors → its device
-    outputs."""
-    if cfg.use_block_switch:
-        return bsw.encode_frames_bs_packed(*args, cfg, c)
-    return codec.encode_frames_packed_halves(*args, cfg, c)
-
-
 def _decode_into(cfg: CodecConfig, c, words, tail: torch.Tensor):
     """The graphed decoder's push core: (words int32 [C, m, W32], the
     carried tail [C, H]) → (out [C, m, H], tail), the new tail written over
     the old, so that a graph's tail stays its static input."""
-    out, new = codec.decode_frames_stream(words, tail, cfg, c)
+    out, new = family.decode_stream(cfg, c, words, tail)
     tail.copy_(new)
     return out, tail
 
@@ -201,10 +190,10 @@ class StreamEncoder:
         c = n_channels or cfg.n_channels
         self.cfg = cfg = cfg.replace(n_channels=c)
         self.device = resolve_device(device)
-        self.consts = (bsw.make_bs_consts if cfg.use_block_switch
-                       else codec.make_consts)(cfg, self.device)
-        # the cores hold the config and constants, not the coder
-        self.core = functools.partial(_fixed_core, cfg, self.consts)
+        self.family = family.of(cfg)
+        self.consts = self.family.make_consts(cfg, self.device)
+        # the core holds the config and constants, not the coder
+        self.core = functools.partial(family.encode_stream, cfg, self.consts)
         self.graphs = (_PushGraphs(self.core, self.device)
                        if graphed(cfg, self.device) else None)
         h = cfg.n_mdct_lines
@@ -263,27 +252,33 @@ class StreamEncoder:
             return self._emit_bs(halves)
         return self._emit_flat(halves)
 
-    def _res0(self) -> torch.Tensor:
-        return tracing.upload(self.state.reservoir.astype(np.int32),
-                              self.device)
+    def _fills(self) -> tuple:
+        """What the core takes of the reservoir: each lane's fill, int32
+        [L] on the device, under VBR; nothing at a fixed rate."""
+        if not self.family.reservoir:
+            return ()
+        return (tracing.upload(self.state.reservoir.astype(np.int32),
+                               self.device),)
 
-    def _fixed(self, *args):
-        """The fixed-rate push core, replayed as a CUDA graph where the
-        coder has them."""
+    def _core(self, *args):
+        """The push core, replayed as a CUDA graph where the coder has
+        them."""
         return (self.core if self.graphs is None else self.graphs)(*args)
 
+    def _carry(self, res: list) -> None:
+        """Keep each lane's fill after the push's last frame, under VBR."""
+        if res:
+            self.state.reservoir = tracing.to_host(
+                res[0][:, -1]).numpy().astype(np.int64)
+
     def _emit_flat(self, halves: np.ndarray) -> bytes:
-        """Fixed rate and VBR: half h_j completes frame j = [h_{j-1} | h_j]."""
-        st, cfg, c = self.state, self.cfg, self.consts
+        """No block switching: half h_j completes frame j = [h_{j-1} |
+        h_j]."""
+        st = self.state
         with tracing.span("tac.stream.enc.core"):
-            seq = _seq(c.dtype, st.prior[:, None], halves)
-            if cfg.use_huffman:
-                words, nbits, ress = codec.encode_frames_vbr_packed_halves(
-                    seq, self._res0(), cfg, c)
-            else:
-                words, nbits = self._fixed(seq)
-        if cfg.use_huffman:
-            st.reservoir = _lane_fills(ress)
+            seq = _seq(self.consts.dtype, st.prior[:, None], halves)
+            words, nbits, *res = self._core(seq, *self._fills())
+        self._carry(res)
         st.prior = halves[:, -1].copy()
         st.blocks_out += halves.shape[1]
         return api.words_to_stream(words, nbits)
@@ -291,7 +286,7 @@ class StreamEncoder:
     def _emit_bs(self, halves: np.ndarray) -> bytes:
         """Block switching: a new half h_{e+1} makes frame e emittable, its
         state needing the flags up to t_{e+1}."""
-        st, cfg, c = self.state, self.cfg, self.consts
+        st = self.state
         if not st.primed:                  # the first half is the lookahead
             st.look = halves[:, 0].copy()
             st.primed = True
@@ -300,27 +295,17 @@ class StreamEncoder:
                 return b""
         m = halves.shape[1]
         with tracing.span("tac.stream.enc.core"):
-            seq = _seq(c.cl.dtype, st.prior[:, None], st.look[:, None],
-                       halves)
-            t_hist = torch.from_numpy(st.t_hist)
-            if cfg.use_huffman:
-                words, nbits, t, ress = bsw.encode_frames_bs_vbr_packed(
-                    seq, t_hist, self._res0(), cfg, c)
-            else:
-                words, nbits, t = self._fixed(seq, t_hist)
-        if cfg.use_huffman:
-            st.reservoir = _lane_fills(ress)
+            seq = _seq(self.consts.cl.dtype, st.prior[:, None],
+                       st.look[:, None], halves)
+            words, nbits, t, *res = self._core(
+                seq, torch.from_numpy(st.t_hist), *self._fills())
+        self._carry(res)
         # (t_{e+m-2}, t_{e+m-1})
         st.t_hist = tracing.to_host(t[:, m:m + 2]).numpy()
         st.prior = (halves[:, -2] if m >= 2 else st.look).copy()
         st.look = halves[:, -1].copy()
         st.blocks_out += m
         return api.words_to_stream(words, nbits)
-
-
-def _lane_fills(ress: torch.Tensor) -> np.ndarray:
-    """Each lane's reservoir fill after a push's last frame, on the host."""
-    return tracing.to_host(ress[:, -1]).numpy().astype(np.int64)
 
 
 class StreamDecoder:
@@ -334,11 +319,11 @@ class StreamDecoder:
         self.cfg = cfg
         self.num_samples = int(num_samples)   # 0: unknown, emit everything
         self.device = resolve_device(device)
-        self.consts = codec.frame_decoder(cfg)[1](cfg, self.device)
+        self.consts = family.of(cfg).make_consts(cfg, self.device)
         self.graphs = (_PushGraphs(functools.partial(
             _decode_into, cfg, self.consts), self.device)
             if graphed(cfg, self.device) else None)
-        self.w32 = api.payload_words(cfg)
+        self.w32 = family.payload_words(cfg)
         self.buf = b""
         self.tail: Optional[torch.Tensor] = None
         self.frames_in = 0
@@ -374,19 +359,18 @@ class StreamDecoder:
                     return np.zeros((0, c), np.float32)
                 # raises CorruptStreamError on a block longer than the
                 # capacity
-                rows = stream_to_rows(
+                words = api.stream_words(
                     self.buf, np.asarray(offs[:m * c], np.int64),
-                    np.asarray(lens[:m * c], np.int64), self.w32)
+                    np.asarray(lens[:m * c], np.int64), c,
+                    self.w32).view(np.int32)
                 self.buf = self.buf[offs[m * c - 1] + lens[m * c - 1]:]
-                words = np.ascontiguousarray(
-                    rows.reshape(m, c, self.w32).swapaxes(0, 1)).view(np.int32)
             priming = self.tail is None    # frame 0's first half is padding
             with tracing.span("tac.stream.dec.decode"):
                 tail = (torch.zeros((c, h), device=self.device) if priming
                         else self.tail)
                 if self.graphs is None:
-                    out, self.tail = codec.decode_frames_stream(
-                        words, tail, cfg, self.consts)
+                    out, self.tail = family.decode_stream(
+                        cfg, self.consts, words, tail)
                 else:
                     out, self.tail = self.graphs(torch.from_numpy(words),
                                                  tail)

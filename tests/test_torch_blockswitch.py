@@ -26,6 +26,7 @@ from tac_torch import api as tapi
 from tac_torch import bitstream as tbs
 from tac_torch import blockswitch as tb
 from tac_torch import codec as tc
+from tac_torch import family as tf
 from tac_torch.config import PRESETS as TPRESETS
 from tac_torch.dsp import window as tw
 from tac_torch.ops import bitpack as tbp
@@ -326,19 +327,19 @@ def test_bs_batch_equals_solo_encodes_at_any_chunk():
     cfg = TPRESETS["streaming-ll"].replace(n_channels=2)
     a = np.stack([_transient_clip()[:8000, 0], _all_short_clip()[:8000, 0]])
     b = 0.5 * a[::-1, ::-1].copy()
-    batch_w, batch_n = tb.encode_clip_bs_packed(np.stack([a, b]), cfg,
-                                                device="cpu")
+    batch_w, batch_n = tf.encode_clip_packed(np.stack([a, b]), cfg,
+                                             device="cpu")
     assert batch_w.dtype == torch.int32 and batch_w.shape[:3] == (2, 2, 33)
     chunk = tc.ENC_CHUNK
     try:
         tc.ENC_CHUNK = 13                         # 66 rows a clip: 6 chunks
         for i, clip in enumerate((a, b)):
-            w, n = tb.encode_clip_bs_packed(clip, cfg, device="cpu")
+            w, n = tf.encode_clip_packed(clip, cfg, device="cpu")
             assert torch.equal(w, batch_w[i]) and torch.equal(n, batch_n[i])
     finally:
         tc.ENC_CHUNK = chunk
-    y = tb.decode_clip_bs_packed(batch_w, cfg, 8000, device="cpu")
-    y0 = tb.decode_clip_bs_packed(batch_w[0], cfg, 8000, device="cpu")
+    y = tf.decode_clip_packed(batch_w, cfg, 8000, device="cpu")
+    y0 = tf.decode_clip_packed(batch_w[0], cfg, 8000, device="cpu")
     assert y.shape == (2, 2, 8000) and torch.equal(y[0], y0)
 
 
@@ -354,11 +355,11 @@ def test_bs_entry_points_need_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.decode_array(data)
     with pytest.raises(RuntimeError):
-        tb.encode_clip_bs_packed(x.T, cfg)
+        tf.encode_clip_packed(x.T, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tb.encode_clip_bs_packed(np.zeros((2, 2048)), TPRESETS["ms-bs"])
-    w, n = tb.encode_clip_bs_packed(np.zeros((2, 2048)), TPRESETS["ms-bs"],
-                                    device="cpu")
+        tf.encode_clip_packed(np.zeros((2, 2048)), TPRESETS["ms-bs"])
+    w, n = tf.encode_clip_packed(np.zeros((2, 2048)), TPRESETS["ms-bs"],
+                                 device="cpu")
     assert w.shape[:2] == n.shape[:2] == (2, 3)
     y, fs = tapi.decode_array(data, "fast", device="cpu")
     assert y.shape == x.shape and fs == 44100 and not y.any()

@@ -26,6 +26,7 @@ from tac_torch import api as tapi
 from tac_torch import bitstream as tbs
 from tac_torch import blockswitch as tb
 from tac_torch import codec as tc
+from tac_torch import family as tf
 from tac_torch.config import PRESETS as TPRESETS
 from tac_torch.ops import bitpack as tbp
 
@@ -235,21 +236,21 @@ def test_bs_vbr_batch_lanes_equal_solo_encodes():
     cfg = TPRESETS["vbr-bs"].replace(n_mdct_lines=256, n_mdct_lines_short=64)
     a = _strike_clip(0.3, 2, seed=1).T
     b = 0.5 * _strike_clip(0.3, 2, seed=2).T[::-1].copy()
-    batch_w, batch_n = tb.encode_clip_bs_vbr_packed(np.stack([a, b]), cfg,
-                                                    device="cpu")
+    batch_w, batch_n = tf.encode_clip_packed(np.stack([a, b]), cfg,
+                                             device="cpu")
     f = jm.num_frames(a.shape[1], 256)
     assert batch_w.dtype == torch.int32 and batch_w.shape[:3] == (2, 2, f)
     chunk = tc.ENC_CHUNK
     try:
         tc.ENC_CHUNK = 17
         for i, clip in enumerate((a, b)):
-            w, n = tb.encode_clip_bs_vbr_packed(clip, cfg, device="cpu")
+            w, n = tf.encode_clip_packed(clip, cfg, device="cpu")
             assert torch.equal(w, batch_w[i]) and torch.equal(n, batch_n[i])
     finally:
         tc.ENC_CHUNK = chunk
     t = a.shape[1]
-    y = tb.decode_clip_bs_vbr_packed(batch_w, cfg, t, device="cpu")
-    y1 = tb.decode_clip_bs_vbr_packed(batch_w[1], cfg, t, device="cpu")
+    y = tf.decode_clip_packed(batch_w, cfg, t, device="cpu")
+    y1 = tf.decode_clip_packed(batch_w[1], cfg, t, device="cpu")
     assert y.shape == (2, 2, t) and torch.equal(y[1], y1)
 
 
@@ -265,11 +266,10 @@ def test_bs_vbr_entry_points_need_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.decode_array(data)
     with pytest.raises(RuntimeError):
-        tb.encode_clip_bs_vbr_packed(x.T, cfg)
+        tf.encode_clip_packed(x.T, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tb.encode_clip_bs_vbr_packed(x.T, TPRESETS["vbr-ms-bs"])
-    w, n = tb.encode_clip_bs_vbr_packed(x.T, TPRESETS["vbr-ms-bs"],
-                                        device="cpu")
+        tf.encode_clip_packed(x.T, TPRESETS["vbr-ms-bs"])
+    w, n = tf.encode_clip_packed(x.T, TPRESETS["vbr-ms-bs"], device="cpu")
     assert w.shape[:2] == n.shape[:2] == (2, 5)
     y, fs = tapi.decode_array(data, "fast", device="cpu")
     assert y.shape == x.shape and fs == 44100 and not y.any()

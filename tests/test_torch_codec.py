@@ -21,6 +21,7 @@ from tac.ops import bitpack as jbp
 from tac_torch import api as tapi
 from tac_torch import bitstream as tbs
 from tac_torch import codec as tc
+from tac_torch import family as tf
 from tac_torch.config import PRESETS as TPRESETS
 from tac_torch.ops import bitpack as tbp
 
@@ -151,7 +152,7 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tapi.decode_array(data)
     with pytest.raises(RuntimeError):
-        tc.encode_clip_packed(x.T, TPRESETS["stereo44-128"])
+        tf.encode_clip_packed(x.T, TPRESETS["stereo44-128"])
 
 
 @pytest.mark.parametrize("preset", ["stereo44-128-ms", "vbr-ms", "ms-bs",

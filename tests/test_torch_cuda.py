@@ -902,7 +902,7 @@ def test_vbr_corpus_decode_on_card_runs_k4(dev, tmp_path):
     all-zero padding rows decode to silence through K4."""
     import os
 
-    from tac_torch import api, parallel
+    from tac_torch import api, family, parallel
     from tac_torch.corpus import CorpusDecoder, CorpusTranscoder
     from tac_torch.io.wav import read_wav
 
@@ -924,7 +924,7 @@ def test_vbr_corpus_decode_on_card_runs_k4(dev, tmp_path):
         np.testing.assert_allclose(
             y, np.clip(np.round(ref * 32768.0), -32768, 32767) / 32768.0,
             rtol=0, atol=1.001 / 32768.0)
-    w32 = api.payload_words(cfg)
+    w32 = family.payload_words(cfg)
     zeros = np.zeros((2, 2, 32, w32), np.int32)
     before = tk4.huffman_decode_sets.launches
     y = parallel.decode_batch_packed(zeros, cfg, 31 * cfg.n_mdct_lines,

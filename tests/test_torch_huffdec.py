@@ -24,6 +24,7 @@ from tac import huffman as jh
 from tac.config import PRESETS as JPRESETS
 from tac.ops.pallas_huffdec import huffman_decode_rows as pallas_decode
 from tac_torch import codec as tc
+from tac_torch import family as tf
 from tac_torch import huffman as th
 from tac_torch.config import PRESETS as TPRESETS
 from tac_torch.ops import huffdec as tk4
@@ -156,7 +157,7 @@ def test_plain_k4_forced_set3_rows(rng):
                   0.3 * np.sin(2 * np.pi * 3000 * t)])
     cfg = TCFG.replace(huffman_sets=3)
     c = tc.make_consts(cfg, CPU)
-    words, _ = tc.encode_clip_vbr_packed(x, cfg, device="cpu")
+    words, _ = tf.encode_clip_packed(x, cfg, device="cpu")
     code = tc._unpack_vbr_fields(words.reshape(-1, words.shape[-1]), cfg, c)
     tid3 = torch.full(code.ovs.shape, 3, dtype=torch.int32)
     w3, nbits = pack_rows(*tc.payload_fields_vbr(code, tid3, cfg, c),

@@ -22,8 +22,8 @@ from tac_torch import api as tapi
 from tac_torch import bands
 from tac_torch import bitalloc as tba
 from tac_torch import bitstream as tbs
-from tac_torch import blockswitch as tb
 from tac_torch import codec as tc
+from tac_torch import family as tf
 from tac_torch.config import PRESETS as TPRESETS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -187,12 +187,8 @@ def test_quad_pairwise_stream(preset, material):
     q = _quad(material)
     cfg = TPRESETS[preset].replace(precision="parity")
     cfg4 = cfg.replace(n_channels=4, bitrate_bps=2 * cfg.bitrate_bps)
-    enc = {"stereo44-128-ms": tc.encode_clip_packed,
-           "vbr-ms": tc.encode_clip_vbr_packed,
-           "ms-bs": tb.encode_clip_bs_packed,
-           "vbr-ms-bs": tb.encode_clip_bs_vbr_packed}[preset]
-    w4, n4 = enc(q.T, cfg4, device="cpu")
-    w2, n2 = enc(q[:, :2].T, cfg, device="cpu")
+    w4, n4 = tf.encode_clip_packed(q.T, cfg4, device="cpu")
+    w2, n2 = tf.encode_clip_packed(q[:, :2].T, cfg, device="cpu")
     assert w4.shape[0] == 4 and w4.shape[1:] == w2.shape[1:]
     assert torch.equal(n4[:2], n2) and torch.equal(w4[:2], w2)
     y4 = tapi.decode_array(tapi.encode_array(q, cfg4, device="cpu"),
@@ -214,24 +210,20 @@ def test_ms_batch_equals_solo_encodes(preset, material):
     x = material["stereo44"][0].T
     a, b = x[:, :6144], 0.5 * x[::-1, 4096:10240]
     cfg = TPRESETS[preset].replace(n_mdct_lines=256, n_mdct_lines_short=64)
-    enc, dec = {
-        "stereo44-128-ms": (tc.encode_clip_packed, tc.decode_clip_packed),
-        "vbr-ms": (tc.encode_clip_vbr_packed, tc.decode_clip_vbr_packed),
-        "ms-bs": (tb.encode_clip_bs_packed, tb.decode_clip_bs_packed),
-        "vbr-ms-bs": (tb.encode_clip_bs_vbr_packed,
-                      tb.decode_clip_bs_vbr_packed)}[preset]
     chunk = tc.ENC_CHUNK
     try:
         tc.ENC_CHUNK = 7
-        batch_w, batch_n = enc(np.stack([a, b]), cfg, device="cpu")
+        batch_w, batch_n = tf.encode_clip_packed(np.stack([a, b]), cfg,
+                                                 device="cpu")
         assert batch_w.shape[:3] == (2, 2, 25)
         for i, clip in enumerate((a, b)):
-            w, n = enc(clip, cfg, device="cpu")
+            w, n = tf.encode_clip_packed(clip, cfg, device="cpu")
             assert torch.equal(w, batch_w[i]) and torch.equal(n, batch_n[i])
     finally:
         tc.ENC_CHUNK = chunk
-    y = dec(batch_w, cfg, 6144, device="cpu")
-    assert torch.equal(y[1], dec(batch_w[1], cfg, 6144, device="cpu"))
+    y = tf.decode_clip_packed(batch_w, cfg, 6144, device="cpu")
+    y1 = tf.decode_clip_packed(batch_w[1], cfg, 6144, device="cpu")
+    assert torch.equal(y[1], y1)
     assert _snr(b, y[1].numpy()) > 10.0
 
 

@@ -22,6 +22,7 @@ from tac.ops import bitpack as jbp
 from tac_torch import api as tapi
 from tac_torch import bitstream as tbs
 from tac_torch import codec as tc
+from tac_torch import family as tf
 from tac_torch.config import PRESETS as TPRESETS
 from tac_torch.ops import bitpack as tbp
 
@@ -163,14 +164,14 @@ def test_vbr_batch_lanes_equal_solo_encodes(clip44):
     cfg = TPRESETS["vbr-huffman"]
     a = clip44.T[:, :8192]
     b = 0.5 * clip44.T[::-1, 4096:12288]
-    batch_w, batch_n = tc.encode_clip_vbr_packed(np.stack([a, b]), cfg,
-                                                 device="cpu")
+    batch_w, batch_n = tf.encode_clip_packed(np.stack([a, b]), cfg,
+                                             device="cpu")
     assert batch_w.dtype == torch.int32 and batch_w.shape[:3] == (2, 2, 9)
     chunk = tc.ENC_CHUNK
     try:
         tc.ENC_CHUNK = 7                          # 18 rows a clip: 3 chunks
         for i, clip in enumerate((a, b)):
-            w, n = tc.encode_clip_vbr_packed(clip, cfg, device="cpu")
+            w, n = tf.encode_clip_packed(clip, cfg, device="cpu")
             assert torch.equal(w, batch_w[i]) and torch.equal(n, batch_n[i])
     finally:
         tc.ENC_CHUNK = chunk
@@ -188,10 +189,10 @@ def test_vbr_entry_points_need_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.decode_array(data)
     with pytest.raises(RuntimeError):
-        tc.encode_clip_vbr_packed(x.T, cfg)
+        tf.encode_clip_packed(x.T, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tc.encode_clip_vbr_packed(x.T, TPRESETS["vbr-ms"])
-    w, n = tc.encode_clip_vbr_packed(x.T, TPRESETS["vbr-ms"], device="cpu")
+        tf.encode_clip_packed(x.T, TPRESETS["vbr-ms"])
+    w, n = tf.encode_clip_packed(x.T, TPRESETS["vbr-ms"], device="cpu")
     assert w.shape[:2] == n.shape[:2] == (2, 3)
     y, fs = tapi.decode_array(data, "fast", device="cpu")
     assert y.shape == x.shape and fs == 44100 and not y.any()
