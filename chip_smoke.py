@@ -6,28 +6,34 @@
 Phases, each of which fails the run (non-zero exit) on error:
   1. card: the GPU's name and power limit (nvidia-smi's line, alone), torch
      and CUDA versions;
-  2. build: all seven CUDA kernels from tac_torch/csrc (one nvcc per
+  2. build: all eight CUDA kernels from tac_torch/csrc (one nvcc per
      source, all started together), with nvcc's register / shared-memory /
      spill lines;
  2a. K6 (row_gemm, the fast encoders' products: an FFMA chain per output)
-     and K7 (segment_sum, their band and transient sums: a warp per row), the
-     port's kernels with no TPU counterpart, on every product and band sum
-     of one flagship encode and at each product shape of the presets (2 048
-     rows, and 1 and 2 049): K6 within K * 2^-23 * sum|a||b| of its plain
-     version, K7 equal to its plain version on the CPU (40 and 64 segments
-     too); the rows of each equal bit for bit across M in {1, 2, 3, 2047,
-     2048, 2049, 20704}, a permutation and leading axes; times (events and
-     the profiler's device time) against the library's calls
-     (``phase_row_kernels``);
+     and K7 (segment_sum, block switching's transient prefix sums: a warp
+     per row), the port's kernels with no TPU counterpart, on every product
+     of one flagship encode, the transient sums of a switching clip and of
+     a streaming-ll bulk batch, and at each product shape of the presets
+     (2 048 rows, and 1 and 2 049): K6 within K * 2^-23 * sum|a||b| of its
+     plain version, K7 equal to its plain version on the CPU (40 and 64
+     segments too); the rows of each equal bit for bit across M in {1, 2,
+     3, 2047, 2048, 2049, 20704}, a permutation and leading axes; times
+     (events and the profiler's device time) against the library's calls
+     (``phase_row_kernels``); then K8 (psy_smr, the fast psy model after
+     its DFT in one launch) on the flagship's own calls and on streaming-ll's
+     long and short rows: the same kept maskers as the plain model, SMRs
+     within 0.001 dB, rows equal across M and a permutation, times against
+     the plain model and its bound (``phase_psy_kernel``);
  2b. the batch-invariance diagnostic (``phase_batch_invariance``): the
      nine golden families in fast precision, a noisy and a pure-tone clip
      each, solo against inside batches of 2 / 8 / 16 and as a stream of
      one- and two-row chunks, stage by stage bit for bit (frames, MDCT
-     lines, psy DFT, noise maskers, masker thresholds, SMRs, snapped SMRs,
-     allocations, words, stream bytes; transient flags on block
-     switching), with the library's products and cumsums (before K6 and
-     K7) and as the port runs; the first differing stage and row are
-     printed both ways, and any difference with K6 and K7 fails the run;
+     lines, psy DFT, SMRs, snapped SMRs, allocations, words, stream
+     bytes; transient flags on block
+     switching), with the library's products and cumsums and the plain psy
+     model (before K6, K7 and K8) and as the port runs; the first
+     differing stage and row are printed both ways, and any difference
+     with K6-K8 fails the run;
   3. kernel checks at the flagship's shapes: K1 (water-fill) and K2 (word
      scatter) equal their plain PyTorch versions exactly, on the card,
      including a constructed row where a fused multiply-add would change
@@ -36,7 +42,7 @@ Phases, each of which fails the run (non-zero exit) on error:
      the batched device encode (timed with CUDA events), then
      encode_array → bytes → decode_array per clip; the launch counters are
      zeroed just before and read just after, and every kernel must have
-     launched (K1, K2, K6, K7); the card's SNR on clip 0 (first 2 s) must
+     launched (K1, K2, K6, K8); the card's SNR on clip 0 (first 2 s) must
      be within 0.1 dB of the port's own CPU run; then one encode under
      torch.profiler (device time by kernel, idle share);
   5. VBR kernel checks at the VBR run's shapes: K3 (reservoir chain, 32
@@ -373,6 +379,7 @@ def kernel_counters() -> dict:
     from tac_torch.ops import alloc as k1
     from tac_torch.ops import huffdec as k4
     from tac_torch.ops import pack as k2
+    from tac_torch.ops import psy_smr as k8
     from tac_torch.ops import row_gemm as k6
     from tac_torch.ops import segment_sum as k7
     from tac_torch.ops import vbr_scan as k3
@@ -382,7 +389,8 @@ def kernel_counters() -> dict:
             "vbr_scan": k3.vbr_reservoir_scan,
             "huffdec": k4.huffman_decode_sets,
             "row_gemm": k6.row_matmul,
-            "segment_sum": k7.segment_sums}
+            "segment_sum": k7.segment_sums,
+            "psy_smr": k8.psy_smr_rows}
 
 
 def all_counters() -> dict:
@@ -536,17 +544,21 @@ def rows_invariant(fn, x) -> dict:
 def phase_row_kernels(frames, card: str) -> tuple:
     """K6 (row_gemm) and K7 (segment_sum), the kernels of this port with no
     TPU counterpart that make the fast encoders' floats row-invariant, on
-    the flagship's own inputs (every product and band sum of one encode,
-    recorded from analyze_frame on its 2 048-row chunks) and on noisy rows
-    at each product shape of the presets. K6 within K * 2^-23 * sum|a||b|
+    the flagship's own inputs (every product of one encode, recorded from
+    analyze_frame on its 2 048-row chunks; K7 is recorded there too, and
+    launches none: the psy's band sums are K8's), on block switching's
+    transient prefix sums (a switching clip's, and a streaming-ll bulk
+    batch's: 16 x 15 s mono) and on noisy rows at each product shape of
+    the presets. K6 within K * 2^-23 * sum|a||b|
     of its plain version (one library call per row); K7 equal to its plain
     version on the CPU bit for bit (the CPU's cumsum adds in double, in
     index order, as the kernel does) and within L * 2^-23 * sum|x| of it on
     the card. Each kernel's rows equal, bit for bit, across M in {1, 2, 3,
-    2047, 2048, 2049, 20704} and under a row permutation. Times: one
-    encode's launches (events) against the library's calls and the plain
-    version, and per launch at each shape. Returns the two kernels' entries
-    of the kernels line (launches are added by the path phases)."""
+    2047, 2048, 2049, 20704} and under a row permutation. Times: K6 on one
+    encode's launches and per launch at each shape, K7 on the streaming-ll
+    batch's prefix sums (events) against the library's calls and the plain
+    version. Returns the two kernels' entries of the kernels line (launches
+    are added by the path phases)."""
     import torch
 
     from tac_torch import blockswitch as bsw
@@ -558,9 +570,10 @@ def phase_row_kernels(frames, card: str) -> tuple:
     dev = torch.device("cuda")
     cfg = PRESETS["stereo44-128"]
     c = codec.make_consts(cfg, dev)
-    g6, g7 = [], []
+    g6, g7_enc = [], []
     with torch.no_grad():
-        with recording(k6, "row_matmul", g6), recording(k7, "segment_sums", g7):
+        with recording(k6, "row_matmul", g6), recording(k7, "segment_sums",
+                                                         g7_enc):
             for fc in frames.split(codec.ENC_CHUNK):
                 codec.analyze_frame(fc, cfg, c)
         # K6 against its plain version on every product of the encode
@@ -619,12 +632,17 @@ def phase_row_kernels(frames, card: str) -> tuple:
         check(all(inv6.values()), "K6 rows depend on M or on their place")
         del sub
 
-        # K7: the flagship's noise-band sums and a switching clip's
-        # transient prefix sums
+        # K7: block switching's transient prefix sums, a switching clip's
+        # (vbr-bs) and a streaming-ll bulk batch's (16 x 15 s mono)
         xsw = torch.as_tensor(make_switching_clips(2, 2.0), device=dev)
-        cfg_bs = PRESETS["vbr-bs"]
+        xsl = torch.as_tensor(make_switching_clips(16, 15.0)[:, :1],
+                              device=dev)
+        g7, sll = [], []
         with recording(k7, "segment_sums", g7):
-            bsw.transient_flags(xsw, cfg_bs)
+            bsw.transient_flags(xsw, PRESETS["vbr-bs"])
+        with recording(k7, "segment_sums", sll):
+            bsw.transient_flags(xsl, PRESETS["streaming-ll"])
+        g7 += sll
         worst7, bitwise7 = 0.0, True
         for x, ranges in g7:
             got = k7.segment_sums(x, ranges)
@@ -645,19 +663,19 @@ def phase_row_kernels(frames, card: str) -> tuple:
             bitwise7 &= bool(torch.equal(got.cpu(),
                                          k7.segment_sums_plain(x.cpu(), ranges)))
         g7 = g7[:-2]
-        print(f"  K7 ({len(g7)} calls: band sums, transient prefixes; and 40 / "
-              "64 segments): equal "
-              f"to the CPU plain version {bitwise7}, {worst7:.4f} of the "
-              "bound against the card's")
+        print(f"  K7 ({len(g7)} calls of transient prefixes, and 40 / 64 "
+              f"segments): equal to the CPU plain version {bitwise7}, "
+              f"{worst7:.4f} of the bound against the card's; "
+              f"{len(g7_enc)} launches in one flagship encode")
         check(bitwise7 and worst7 <= 1.0, "K7 differs from its plain version")
-        band = g7[:len(g6) // 3]             # the encode's noise-band sums
-        xr, rr = torch.cat([x for x, _ in band]), band[0][1]
+        rr = sll[0][1]
+        xr = torch.cat([x.reshape(-1, x.shape[-1]) for x, _ in sll])
         inv7 = rows_invariant(lambda x: k7.segment_sums(x, rr), xr)
         print(f"  K7 rows equal across M / permuted: {inv7}")
         check(all(inv7.values()), "K7 rows depend on M or on their place")
 
-        # times of one flagship encode's launches: 3 products and 1 band
-        # sum per 2 048-row chunk
+        # times of one flagship encode's launches (3 products per 2 048-row
+        # chunk) and of the streaming-ll batch's prefix sums
         mdct = [(a, b) for a, b in g6 if b is c.fwd_basis]
         ms6 = cuda_ms(lambda: [k6.row_matmul(a, b) for a, b in g6], 5)
         lib6 = cuda_ms(lambda: [a @ b for a, b in g6], 5)
@@ -665,24 +683,16 @@ def phase_row_kernels(frames, card: str) -> tuple:
         lib6_mdct = cuda_ms(lambda: [a @ b for a, b in mdct], 5)
         _, plain6 = timed(lambda: [k6.row_matmul_plain(a, b) for a, b in g6])
         dev6 = profile_device(lambda: [k6.row_matmul(a, b) for a, b in g6])
-        ms7 = cuda_ms(lambda: [k7.segment_sums(x, r) for x, r in band], 20)
-        dev7 = profile_device(lambda: [k7.segment_sums(x, r) for x, r in band])
-        prefix = [(x, r) for x, r in g7[len(band):] if r[0] == (0, 0)]
-        ms7_prefix = (cuda_ms(lambda: [k7.segment_sums(x, r)
-                                       for x, r in prefix], 20)
-                      if prefix else None)
+        ms7 = cuda_ms(lambda: [k7.segment_sums(x, r) for x, r in sll], 20)
+        dev7 = profile_device(lambda: [k7.segment_sums(x, r) for x, r in sll])
         plain7 = cuda_ms(lambda: [k7.segment_sums_plain(x, r)
-                                  for x, r in band], 5)
-        # the library's one call for contiguous segments
-        lengths = torch.tensor([e - s for s, e in rr], device=dev)
-        s0, s1 = rr[0][0], rr[-1][1]
-        try:
-            lib7 = cuda_ms(lambda: [torch.segment_reduce(
-                x[:, s0:s1], "sum", axis=1,
-                lengths=lengths.expand(x.shape[0], -1)) for x, _ in band], 5)
-        except (RuntimeError, NotImplementedError) as e:
-            print(f"  K7 library call refused: {e}")
-            lib7 = None
+                                  for x, r in sll], 5)
+        # the library's route for prefixes: one cumsum, read at the edges
+        check(all(s_ == 0 for s_, _ in rr), "K7's timed segments are not "
+              "prefixes")
+        ends = torch.tensor([e for _, e in rr], device=dev)
+        lib7 = cuda_ms(lambda: [torch.nn.functional.pad(
+            x.cumsum(-1), (1, 0))[..., ends] for x, _ in sll], 5)
 
     def flops(calls):
         return sum(2 * a.numel() * b.shape[1] for a, b in calls)
@@ -693,9 +703,9 @@ def phase_row_kernels(frames, card: str) -> tuple:
 
     b6, b6_by = bound(nbytes(g6), flops(g6))
     b6m, _ = bound(nbytes(mdct), flops(mdct))
-    n7 = sum(x.numel() for x, _ in band)
-    b7, b7_by = bound(4 * (n7 + sum(x.shape[0] * len(r) for x, r in band)),
-                      n7, FP64_OPS_PER_S)
+    n7 = sum(x.numel() for x, _ in sll)
+    b7, b7_by = bound(4 * (n7 + sum(x.numel() // x.shape[-1] * len(r)
+                                    for x, r in sll)), n7, FP64_OPS_PER_S)
     k6_entry = {
         "name": "row_gemm", "route": "cuda",
         "source": "tac_torch/csrc/row_gemm.cu",
@@ -731,20 +741,143 @@ def phase_row_kernels(frames, card: str) -> tuple:
                   "into doubles (nested prefixes too, a lane each); "
                   "segment table by value",
         "rows_invariant": inv7,
+        "timed": "the transient prefix sums of a streaming-ll bulk batch "
+                 "(16 x 15 s mono)",
+        "rows_timed": xr.shape[0], "calls_timed": len(sll),
         "ms": ms7, "device_ms": dev7["device_busy_ms"],
-        "ms_transient_prefixes": ms7_prefix,
-        "launches_per_flagship_encode": len(band),
+        "launches_per_flagship_encode": len(g7_enc),
         "plain_ms": plain7, "bound_ms": b7, "bound_by": b7_by,
         "library_ms": lib7}
-    del g6, g7, band, mdct, xr, xs7, prefix
+    del g6, g7, g7_enc, sll, mdct, xr, xs7, xsl
     return k6_entry, k7_entry
+
+
+# the SFUs' peak: 16 MUFU operations a clock on each of 132 SMs at 1.98 GHz
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+
+
+def k8_plain(re, im, lines, c, gain=None, maskers=False):
+    """The plain psy model on K8's inputs, in K8's signature: smr, and
+    with ``maskers`` the kept maskers' indices (-1 past the valid ones)."""
+    import torch
+
+    from tac_torch import psy
+
+    ii = c.fft_gain * (re * re + im * im)
+    smr = psy.smrs_from_intensity(ii, lines, c, gain)
+    if not maskers:
+        return smr
+    _, _, top_idx, _, _, valid, _ = psy._tonal_maskers(ii, c)
+    return smr, torch.where(valid, top_idx, -1).to(torch.int32)
+
+
+def phase_psy_kernel(frames, card: str) -> dict:
+    """K8 (psy_smr, the fast psy model after its DFT in one launch) at the
+    paths' shapes: the flagship's own calls (band model, H = 1 024, every
+    2 048-row chunk of one encode, recorded from analyze_frame) and noisy
+    streaming-ll rows, 2 048 long rows (line model, H = 256, a per-row gain)
+    and 8 192 short ones (H = 64, every line a candidate). Against the
+    plain model on the card: the same kept maskers, SMRs within 0.001 dB; rows
+    equal bit for bit across M in {1, 2, 3, 2047, 2048, 2049, all} and a
+    permutation. Times (events, the profiler's device time) against the
+    plain model and the bound: the rows' bytes at the memory rate or one
+    MUFU operation per spread exponential (each valid masker and noise band
+    at each point) at the SFUs' peak. Returns K8's kernels entry."""
+    import torch
+
+    from tac_torch import blockswitch as bsw
+    from tac_torch import codec
+    from tac_torch.config import PRESETS
+    from tac_torch.ops import psy_smr as k8
+    from tac_torch.ops import row_gemm as k6
+
+    dev = torch.device("cuda")
+    cfg = PRESETS["stereo44-128"]
+    c = codec.make_consts(cfg, dev)
+    g8 = []
+    with torch.no_grad():
+        with recording(k8, "psy_smr_rows", g8):
+            for fc in frames.split(codec.ENC_CHUNK):
+                codec.analyze_frame(fc, cfg, c)
+        rng = np.random.default_rng(8)
+        bc = bsw.make_bs_consts(PRESETS["streaming-ll"], dev)
+        cases = {"flagship_band_1024": g8}
+        for name, cp, rows, gain in (("sll_long_256", bc.cl.psy, 2048, True),
+                                     ("sll_short_64", bc.psy_short, 8192,
+                                      False)):
+            h = cp.freqs.shape[0]
+            t = np.arange(rows * 2 * h).reshape(rows, 2 * h) / 44100.0
+            fr = torch.as_tensor(0.4 * np.sin(2 * np.pi * 440 * t)
+                                 + 0.05 * rng.standard_normal((rows, 2 * h)),
+                                 dtype=torch.float32, device=dev)
+            lines = k6.row_matmul(fr, bc.fwd_short if h == 64 else bc.fwd_long)
+            g = (torch.as_tensor(rng.uniform(0.9, 1.6, rows),
+                                 dtype=torch.float32, device=dev)
+                 if gain else None)
+            cases[name] = [(k6.row_matmul(fr, cp.fft_cos),
+                            k6.row_matmul(fr, cp.fft_sin), lines, cp, g)]
+        entry = {"name": "psy_smr", "route": "cuda",
+                 "source": "tac_torch/csrc/psy_smr.cu",
+                 "replaces": "none: port-only, no TPU kernel (tac's psy model "
+                             "after its DFT is jnp ops fused by XLA: "
+                             "tac/psy.py)",
+                 "ok": True,
+                 "design": "T = min(H, 256) threads a row, 256 / T rows a "
+                           "block; the row's intensity in shared memory, "
+                           "candidates as 64-bit (value, index) keys in a "
+                           "bitonic sort; masker intensities added in rank "
+                           "order per point (line model) or from a (masker, "
+                           "band) table (band model); noise bands in index "
+                           "order in double; -fmad=false, precise powf",
+                 "max_abs_err": 0.0, "by_shape": {}}
+        for name, calls in cases.items():
+            worst, same, exps, nbytes = 0.0, True, 0, 0
+            for re, im, lines, cp, g in calls:
+                got, idx = k8.psy_smr_rows(re, im, lines, cp, g, maskers=True)
+                want, widx = k8_plain(re, im, lines, cp, g, maskers=True)
+                same &= bool(torch.equal(idx, widx))
+                worst = max(worst, float((got - want).abs().max()))
+                h = cp.freqs.shape[0]
+                points = 2 * len(cp.band_ranges) if cp.band_thresh else h
+                noise = len(cp.band_ranges) if cp.noise_maskers else 0
+                exps += int(((idx >= 0).sum(-1) + noise).sum()) * points
+                nbytes += 4 * (3 * re.numel() + got.numel()
+                               + (0 if g is None else g.numel()))
+            print(f"  K8 {name} ({len(calls)} calls): maskers equal {same}, "
+                  f"max |smr - plain| {worst:.3e} dB")
+            check(same and worst <= 1e-3, f"K8 {name} differs from the plain "
+                  "model")
+            re, im, lines, cp, g = calls[0]
+            inv = rows_invariant(lambda x: k8.psy_smr_rows(
+                x[:, 0], x[:, 1], x[:, 2], cp, None if g is None
+                else x[:, 3, 0].contiguous()),
+                torch.stack([re, im, lines] + ([] if g is None else [
+                    g[:, None].expand_as(re)]), 1))
+            check(all(inv.values()), f"K8 {name}: rows depend on M or on "
+                  "their place")
+
+            def run(fn=k8.psy_smr_rows):
+                return [fn(*a) for a in calls]
+
+            b, by = bound(nbytes, exps, SFU_OPS_PER_S)
+            entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+            entry["by_shape"][name] = {
+                "calls": len(calls), "rows": sum(a[0].shape[0] for a in calls),
+                "maskers_equal": same, "max_abs_err_db": worst,
+                "rows_invariant": inv, "ms": cuda_ms(run, 10),
+                "device_ms": profile_device(run)["device_busy_ms"],
+                "plain_ms": cuda_ms(lambda: run(k8_plain), 2, 1),
+                "bound_ms": b, "bound_by": by, "spread_exponentials": exps,
+                "bytes": nbytes}
+            print(f"  K8 {name}: {json.dumps(entry['by_shape'][name])}")
+    del g8, cases
+    return entry
 
 
 # the fast encode's stages, in pipeline order (those a family has)
 STAGES = ("transient_flags", "frames", "mdct_lines", "long_lines",
-          "short_lines", "dft_re", "dft_im", "noise_maskers",
-          "masker_threshold", "smr", "smr_long", "smr_short", "smr_q",
-          "alloc")
+          "short_lines", "dft_re", "dft_im", "smr", "smr_long", "smr_short",
+          "smr_q", "alloc")
 
 
 def inv_batch(x: np.ndarray, n: int, pos: int, fs: int, seed: int):
@@ -774,7 +907,6 @@ def inv_stages(xb: np.ndarray, cfg, sizes) -> dict:
 
     from tac_torch import bitalloc, codec, family
     from tac_torch import blockswitch as bsw
-    from tac_torch import psy
     from tac_torch.ops import row_gemm as k6
 
     dev = torch.device("cuda")
@@ -819,17 +951,10 @@ def inv_stages(xb: np.ndarray, cfg, sizes) -> dict:
         if not cfg.use_huffman and cfg.stereo_mode == "lr":
             out["alloc"].append(codec.water_fill_alloc(sel, nl, cl.budget,
                                                        cfg))
+        # the psy's DFT (K6); the model after it is K8's, inside the SMRs
         if cp is not None:
             out["dft_re"].append(k6.row_matmul(fc, cp.fft_cos))
             out["dft_im"].append(k6.row_matmul(fc, cp.fft_sin))
-            ii = psy._spectrum_intensity(fc, cp)
-            peak_i, top_i, top_idx, _, _, valid, k = psy._tonal_maskers(ii, cp)
-            if cp.noise_maskers:
-                out["noise_maskers"].append(psy._noise_band_maskers(
-                    ii, peak_i, top_i, top_idx, valid, k, cp)[0])
-            out["masker_threshold"].append(
-                psy.masked_threshold_bands(fc, cp) if cp.band_thresh
-                else psy.masked_threshold(fc, cp))
         i += n
     res = {}
     for s in STAGES:
@@ -922,18 +1047,19 @@ def phase_batch_invariance(card: str) -> None:
     families in fast precision, one noisy clip and one pure-tone clip of
     0.5 s, solo against inside batches of 2 / 8 / 16 at three places and
     as a stream of one- and two-row chunks, compared stage by stage bit for
-    bit (the framed rows, the MDCT lines, the psy DFT's re / im, the noise
-    maskers' band energies and the masker thresholds, the SMRs and snapped
-    SMRs, the allocations, the words; the transient flags on the
+    bit (the framed rows, the MDCT lines, the psy DFT's re / im, the SMRs
+    and snapped SMRs, the allocations, the words; the transient flags on the
     block-switch families), first with the library's products and cumsums
-    in place of K6 and K7 (the route before them), then as the port runs.
+    and the plain psy model in place of K6, K7 and K8 (the route before
+    them), then as the port runs.
     Prints the first differing stage and row per family, clip and setting,
-    both ways; fails if any differs with K6 and K7."""
+    both ways; fails if any differs with K6, K7 and K8."""
     import os
 
     import torch
 
     from tac_torch.config import PRESETS
+    from tac_torch.ops import psy_smr as k8
     from tac_torch.ops import row_gemm as k6
     from tac_torch.ops import segment_sum as k7
 
@@ -961,15 +1087,16 @@ def phase_batch_invariance(card: str) -> None:
                                  ).astype(np.float32)}
             rec = {}
             for when in ("before", "after"):
-                orig = (k6.row_matmul, k7.segment_sums)
+                orig = (k6.row_matmul, k7.segment_sums, k8.psy_smr_rows)
                 if when == "before":       # the library's products and sums
                     k6.row_matmul = lambda a, b: a @ b
                     k7.segment_sums = k7.segment_sums_plain
+                    k8.psy_smr_rows = k8_plain
                 try:
                     rec[when] = {kind: diagnose(cfg, clip, len(tag))
                                  for kind, clip in material.items()}
                 finally:
-                    k6.row_matmul, k7.segment_sums = orig
+                    k6.row_matmul, k7.segment_sums, k8.psy_smr_rows = orig
             report[tag] = rec
             print(f"  batch invariance {tag}: before "
                   f"{json.dumps(rec['before'])}; after "
@@ -985,7 +1112,7 @@ def phase_batch_invariance(card: str) -> None:
         "cases_differing_after": differ_after,
         "seconds": time.perf_counter() - t_phase, "card": card}}))
     check(differ_after == 0, f"batch invariance: {differ_after} cases still "
-          "differ from the solo encode with K6 and K7")
+          "differ from the solo encode with K6, K7 and K8")
 
 
 def phase_k5(x: np.ndarray, card: str) -> dict:
@@ -1186,7 +1313,8 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
         _, launches_b, path_b = drive_path(xs, cfg_b, "bs", card)
         prof_b = path_b.pop("profile")
     check(all(launches_b[k_] > 0 for k_ in ("water_fill", "scatter_words",
-                                            "row_gemm", "segment_sum")),
+                                            "row_gemm", "segment_sum",
+                                            "psy_smr")),
           "a kernel of the bs path was never launched")
     print(json.dumps({"profile_bs": {"what": "one batched bs device encode",
                                      **prof_b}}))
@@ -1239,7 +1367,7 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
         prof_c = path_c.pop("profile")
         check(all(launches_c[k_] > 0
                   for k_ in ("scatter_words", "vbr_scan", "huffdec",
-                             "row_gemm", "segment_sum")),
+                             "row_gemm", "segment_sum", "psy_smr")),
               "a kernel of the bs x vbr path was never launched")
 
         # K4 on the combo encode's words, m_line from the state-selected map
@@ -1286,7 +1414,7 @@ def phase_block_switch(xs: np.ndarray, card: str) -> dict:
                     "sets_walked_bs_vbr_path": sets_present},
         **{k_: {"launches_bs_path": launches_b[k_],
                 "launches_bs_vbr_path": launches_c[k_]}
-           for k_ in ("row_gemm", "segment_sum")},
+           for k_ in ("row_gemm", "segment_sum", "psy_smr")},
     }
 
 
@@ -1313,7 +1441,7 @@ def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
     dev = torch.device("cuda")
     ch = codec.ENC_CHUNK
     out = {"water_fill": {}, "scatter_words": {}, "vbr_scan": {}, "huffdec": {},
-           "row_gemm": {}, "segment_sum": {}}
+           "row_gemm": {}, "segment_sum": {}, "psy_smr": {}}
     err = dict.fromkeys(out, 0)
 
     def k2_case(fam, vals_wids, cap_bits):
@@ -1414,7 +1542,9 @@ def phase_ms(x: np.ndarray, xs: np.ndarray, lr_ref: dict, card: str) -> dict:
     def path(fam, xs_, cfg, need, extra):
         """Drive the family's path and print its ms_path line."""
         _, launches, rec = drive_path(xs_, cfg, fam, card)
-        need = (*need, "row_gemm", "segment_sum")
+        # K7 sums the transient detector's energies (block switching)
+        need = (*need, "row_gemm", "psy_smr") + (
+            ("segment_sum",) if cfg.use_block_switch else ())
         check(all(launches[k_] > 0 for k_ in need),
               f"a kernel of the {fam} path was never launched")
         for k_ in need:
@@ -2403,7 +2533,7 @@ def phase_corpus(card: str) -> dict:
                   f"corpus-decode {fam}: a batch took the per-stream fallback")
             need = (("water_fill", "scatter_words"), ()) if fam == "corpus" \
                 else (("scatter_words", "vbr_scan"), ("huffdec",))
-            need = (need[0] + ("row_gemm", "segment_sum"), need[1])
+            need = (need[0] + ("row_gemm", "psy_smr"), need[1])
             check(all(enc_l[k] > 0 for k in need[0])
                   and all(dec_l[k] > 0 for k in need[1])
                   and enc_l["mdct_fused"] == dec_l["mdct_fused"] == 0,
@@ -2820,7 +2950,7 @@ def check_sharded_path(ranks: list, x: np.ndarray, single: dict,
         need = (("water_fill", "scatter_words"), ()) \
             if fam == "stereo44-128" else (("scatter_words", "vbr_scan"),
                                            ("huffdec",))
-        need = (need[0] + ("row_gemm", "segment_sum"), need[1])
+        need = (need[0] + ("row_gemm", "psy_smr"), need[1])
         fams[fam] = {
             "words_equal_full_batch": same_w,
             "decodes_equal_single_process": same_y,
@@ -3132,6 +3262,7 @@ def main(argv=None) -> int:
     # ---- 3a. K6 / K7 against their plain versions; the invariance
     # diagnostic before (library products and cumsums) and after
     k6_entry, k7_entry = phase_row_kernels(frames, card)
+    k8_entry = phase_psy_kernel(frames, card)
     phase_batch_invariance(card)
 
     # ---- 3. kernel checks: kernel == plain on the card
@@ -3259,7 +3390,7 @@ def main(argv=None) -> int:
     launches = read_counters(main_counters)
     print(f"main path launches: {launches}")
     check(all(launches[k_] > 0 for k_ in ("water_fill", "scatter_words",
-                                          "row_gemm", "segment_sum")),
+                                          "row_gemm", "psy_smr")),
           "a kernel of the main path was never launched")
 
     snrs = decode_checks(x, decoded, "fixed-rate")
@@ -3507,7 +3638,7 @@ def main(argv=None) -> int:
     launches_v = {name: fn.launches for name, fn in counters.items()}
     print(f"vbr path launches: {launches_v}")
     check(all(launches_v[k_] > 0 for k_ in ("scatter_words", "vbr_scan", "huffdec",
-                                            "row_gemm", "segment_sum")),
+                                            "row_gemm", "psy_smr")),
           "a kernel of the VBR path was never launched")
 
     snrs_v = decode_checks(x, decoded_v, "VBR")
@@ -3616,7 +3747,7 @@ def main(argv=None) -> int:
          "library_ms": None},
     )] + [with_bs({**entry, "launches": launches[entry["name"]],
                    "launches_vbr_path": launches_v[entry["name"]]})
-          for entry in (k6_entry, k7_entry)] + [{**k5_entry,
+          for entry in (k6_entry, k7_entry, k8_entry)] + [{**k5_entry,
            "launches_stream_path": st["mdct_fused"]["launches_stream_path"],
            "launches_seek_path": st["mdct_fused"]["launches_seek_path"],
            "launches_corpus_path": co["mdct_fused"]["launches_corpus_path"],

@@ -50,6 +50,9 @@ KERNELS = {
     "mdct_fused": ("mdct_fused.cu", [], []),
     "row_gemm": ("row_gemm.cu", [], []),
     "segment_sum": ("segment_sum.cu", [], []),
+    # K8 compares the plain version's intensities and peak sums bit for bit
+    # to keep its maskers: no contraction there either
+    "psy_smr": ("psy_smr.cu", ["-fmad=false"], []),
 }
 
 _loaded: dict = {}

@@ -5,7 +5,8 @@ per-frame function; here the batch axis is written out). Formulas are
 frozen in SPEC.md §5:
 
   * the fast-mode spectrum is a hann-fused DFT by two row-invariant
-    products (K6); parity keeps the f64 FFT;
+    products (K6), and on a card the model after it is one launch (K8,
+    ``calc_smrs``); parity keeps the f64 FFT;
   * tonal maskers are strict local maxima, pair-compacted and ordered by a
     stable sort (the lowest index wins a tie, as tac's two-key sort does);
   * per-band float sums are deterministic: each band's lines are added
@@ -19,6 +20,7 @@ import torch
 from tac_torch import consts
 from tac_torch.config import CodecConfig
 from tac_torch.consts import PsyConsts
+from tac_torch.ops import psy_smr as k8
 from tac_torch.ops import row_gemm as k6
 from tac_torch.ops import segment_sum as k7
 
@@ -85,15 +87,21 @@ def _spread_spl(lm, zm, delta, zline):
     return (lm - delta)[..., None] - drop
 
 
+def _dft(time_frame: torch.Tensor, c: PsyConsts) -> tuple:
+    """[..., N] time frames → the fast hann-fused DFT's (re, im) [..., H]:
+    two row-invariant products (K6)."""
+    x = time_frame.to(c.hann.dtype)
+    return k6.row_matmul(x, c.fft_cos), k6.row_matmul(x, c.fft_sin)
+
+
 def _spectrum_intensity(time_frame: torch.Tensor, c: PsyConsts) -> torch.Tensor:
     """[..., N] time frames → [..., H] psy spectrum intensity."""
     h = c.freqs.shape[0]
-    x = time_frame.to(c.hann.dtype)
     if c.fft_cos is None:            # parity: f64 FFT
+        x = time_frame.to(c.hann.dtype)
         a = torch.fft.fft(x * c.hann, dim=-1)[..., :h].abs()
         return c.fft_gain * (a * a)
-    re = k6.row_matmul(x, c.fft_cos)  # fast: the DFT as two row-invariant
-    im = k6.row_matmul(x, c.fft_sin)  # products (K6)
+    re, im = _dft(time_frame, c)
     return c.fft_gain * (re * re + im * im)
 
 
@@ -166,9 +174,9 @@ def _noise_band_maskers(ii, peak_i, top_i, top_idx, valid, k, c: PsyConsts):
     return spl_from_intensity(noise_i), noise_i > 0.0
 
 
-def masked_threshold(time_frame: torch.Tensor, c: PsyConsts) -> torch.Tensor:
-    """Masked-threshold intensity at each line: [..., N] → [..., H]."""
-    ii = _spectrum_intensity(time_frame, c)
+def _threshold_lines(ii: torch.Tensor, c: PsyConsts) -> torch.Tensor:
+    """Masked-threshold intensity at each line from the spectrum
+    intensity: [..., H] → [..., H]."""
     peak_i, top_i, top_idx, lm, zm, valid, k = _tonal_maskers(ii, c)
     vk = valid[..., None]
     spread = torch.where(vk, _spread_spl(lm, zm, c.delta_tonal, c.zline), _NEG)
@@ -181,15 +189,9 @@ def masked_threshold(time_frame: torch.Tensor, c: PsyConsts) -> torch.Tensor:
     return thr_i + c.quiet_i
 
 
-def masked_threshold_bands(time_frame: torch.Tensor, c: PsyConsts) -> torch.Tensor:
-    """Band-granular masked threshold (SPEC §5): [..., N] → [..., B].
-
-    Each masker's spread is unimodal in Bark and each band owns a
-    contiguous z-increasing line run, so its minimum over a band sits at
-    one of the band's two extreme lines: evaluating at the 2B edge Barks
-    and taking the per-masker edge minimum gives a threshold that never
-    masks more than the line model."""
-    ii = _spectrum_intensity(time_frame, c)
+def _threshold_bands(ii: torch.Tensor, c: PsyConsts) -> torch.Tensor:
+    """Band-granular masked threshold from the spectrum intensity:
+    [..., H] → [..., B] (see ``masked_threshold_bands``)."""
     peak_i, top_i, top_idx, lm, zm, valid, k = _tonal_maskers(ii, c)
     zedges = torch.cat([c.zedge_lo, c.zedge_hi])               # [2B]
     nb = c.zedge_lo.shape[0]
@@ -206,6 +208,41 @@ def masked_threshold_bands(time_frame: torch.Tensor, c: PsyConsts) -> torch.Tens
     return thr_b + c.quiet_band_i
 
 
+def masked_threshold(time_frame: torch.Tensor, c: PsyConsts) -> torch.Tensor:
+    """Masked-threshold intensity at each line: [..., N] → [..., H]."""
+    return _threshold_lines(_spectrum_intensity(time_frame, c), c)
+
+
+def masked_threshold_bands(time_frame: torch.Tensor, c: PsyConsts) -> torch.Tensor:
+    """Band-granular masked threshold (SPEC §5): [..., N] → [..., B].
+
+    Each masker's spread is unimodal in Bark and each band owns a
+    contiguous z-increasing line run, so its minimum over a band sits at
+    one of the band's two extreme lines: evaluating at the 2B edge Barks
+    and taking the per-masker edge minimum gives a threshold that never
+    masks more than the line model."""
+    return _threshold_bands(_spectrum_intensity(time_frame, c), c)
+
+
+def smrs_from_intensity(ii: torch.Tensor, mdct_lines: torch.Tensor,
+                        c: PsyConsts, mdct_gain=None) -> torch.Tensor:
+    """SMR per scale-factor band from the psy spectrum's intensity ii
+    [..., H] and the MDCT lines [..., H] → [..., N_BANDS] (see
+    ``calc_smrs``): the plain model that K8 computes in one launch."""
+    gain = c.mdct_gain if mdct_gain is None else mdct_gain[..., None]
+    if c.band_thresh:
+        thr_spl = spl_from_intensity(_threshold_bands(ii, c))
+        lines = mdct_lines.to(thr_spl.dtype)
+        line_spl = spl_from_intensity(gain * (lines * lines))
+        smr = band_slice_max(line_spl, c.band_ranges, _NEG) - thr_spl
+    else:
+        thr_spl = spl_from_intensity(_threshold_lines(ii, c))
+        lines = mdct_lines.to(thr_spl.dtype)
+        line_spl = spl_from_intensity(gain * (lines * lines))
+        smr = band_slice_max(line_spl - thr_spl, c.band_ranges, _NEG)
+    return torch.where(c.n_lines > 0, smr, _NEG)
+
+
 def calc_smrs(time_frame: torch.Tensor, mdct_lines: torch.Tensor,
               c: PsyConsts, mdct_gain=None) -> torch.Tensor:
     """SMR per scale-factor band. time_frame [..., N], mdct_lines [..., H]
@@ -213,16 +250,13 @@ def calc_smrs(time_frame: torch.Tensor, mdct_lines: torch.Tensor,
 
     mdct_gain [...] overrides the window-power gain 8/mean(w^2) per frame:
     the block-switch START / STOP windows carry other power than the long
-    window (SPEC.md §9)."""
-    gain = c.mdct_gain if mdct_gain is None else mdct_gain[..., None]
-    if c.band_thresh:
-        thr_spl = spl_from_intensity(masked_threshold_bands(time_frame, c))
-        lines = mdct_lines.to(thr_spl.dtype)
-        line_spl = spl_from_intensity(gain * (lines * lines))
-        smr = band_slice_max(line_spl, c.band_ranges, _NEG) - thr_spl
-    else:
-        thr_spl = spl_from_intensity(masked_threshold(time_frame, c))
-        lines = mdct_lines.to(thr_spl.dtype)
-        line_spl = spl_from_intensity(gain * (lines * lines))
-        smr = band_slice_max(line_spl - thr_spl, c.band_ranges, _NEG)
-    return torch.where(c.n_lines > 0, smr, _NEG)
+    window (SPEC.md §9).
+
+    Fast precision on a card takes the DFT by K6 and the rest of the
+    model in one K8 launch; on the CPU, and in parity (the f64 FFT), the
+    plain model ``smrs_from_intensity`` runs."""
+    if c.fft_cos is not None and time_frame.device.type == "cuda":
+        re, im = _dft(time_frame, c)
+        return k8.psy_smr_rows(re, im, mdct_lines, c, mdct_gain)
+    return smrs_from_intensity(_spectrum_intensity(time_frame, c),
+                               mdct_lines, c, mdct_gain)

@@ -161,14 +161,14 @@ def launches() -> dict:
     """The hand-written kernels' own launch counters, read where they are:
     the calls Python makes, a CUDA graph's capture among them; a graph's
     replays are counted in ``graph_replays``."""
-    from tac_torch.ops import (alloc, huffdec, mdct_fused, pack, row_gemm,
-                               segment_sum, vbr_scan)
+    from tac_torch.ops import (alloc, huffdec, mdct_fused, pack, psy_smr,
+                               row_gemm, segment_sum, vbr_scan)
 
     return {f.__name__: f.launches for f in (
         alloc.water_fill_rows, pack.scatter_words_rows,
         vbr_scan.vbr_reservoir_scan, huffdec.huffman_decode_sets,
         mdct_fused.mdct_frames_fused, row_gemm.row_matmul,
-        segment_sum.segment_sums)}
+        segment_sum.segment_sums, psy_smr.psy_smr_rows)}
 
 
 # each counter's kernel on the card, by a part of the name a profiler lists
@@ -180,7 +180,8 @@ DEVICE_KERNELS = {"water_fill_rows": "water_fill_kernel",
                   "huffman_decode_sets": "huffdec_sets_kernel",
                   "mdct_frames_fused": "mdct_wgmma_kernel",
                   "row_matmul": "row_gemm_kernel",
-                  "segment_sums": "segment_sum_kernel"}
+                  "segment_sums": "segment_sum_kernel",
+                  "psy_smr_rows": "psy_smr_kernel"}
 
 
 def count(name: str, n: int = 1) -> None:

@@ -1,9 +1,10 @@
-"""Kernels K1-K7 on an NVIDIA GPU against their plain PyTorch versions
+"""Kernels K1-K8 on an NVIDIA GPU against their plain PyTorch versions
 (K1-K4 exact: allocations, words, reservoir decisions and mantissas are
 integers; K5 within 5e-6 of the largest line; K6 within K·2⁻²³·Σ|a||b|;
-K7 equal to its plain version on the CPU), including the constructed
-row where a fused multiply-add would flip a water-fill decision, K6's and
-K7's rows bit for bit across row counts and places, the block-switch
+K7 equal to its plain version on the CPU; K8 the same kept maskers and
+SMRs within 0.001 dB), including the constructed
+row where a fused multiply-add would flip a water-fill decision, K6's,
+K7's and K8's rows bit for bit across row counts and places, the block-switch
 paths end to end, fast encodes whose bytes do not depend on the batch or
 the stream's pushes, and parity bytes on DC / Nyquist equal to the CPU's.
 
@@ -25,6 +26,7 @@ from tac_torch.ops import bitpack as tbp
 from tac_torch.ops import huffdec as tk4
 from tac_torch.ops import mdct_fused as tk5
 from tac_torch.ops import pack as tk2
+from tac_torch.ops import psy_smr as tk8
 from tac_torch.ops import row_gemm as tk6
 from tac_torch.ops import segment_sum as tk7
 from tac_torch.ops import vbr_scan as tk3
@@ -825,8 +827,11 @@ def test_graph_pushes_equal_eager(dev, preset, monkeypatch):
     enc_python = sum(len(g.seen) + len(g.graphs) for g in coders[:-1])
     for k in want[3]:
         assert got[3][k] * enc_cores == want[3][k] * enc_python
+    # K7 adds the transient detector's sums (block switching): the psy's
+    # band sums are K8's
     for k in ("water_fill_rows", "scatter_words_rows", "row_matmul",
-              "segment_sums"):
+              "psy_smr_rows") + (("segment_sums",) if cfg.use_block_switch
+                                 else ()):
         assert got[3][k] < got[4][k] <= want[3][k]
     assert all(len(g.seen) <= streaming.GRAPHS for g in coders)
     assert 0 < counters["graph_captures"] == sum(len(g.graphs)
@@ -1084,8 +1089,8 @@ def test_zero_line_parity_on_card_equals_cpu(dev, preset, n):
 def test_fast_corpus_on_card_equals_solo(dev, tmp_path, family):
     """Fast precision on the card: each batched .pac, noisy clips and pure
     tones alike, equals the solo encode_array on the card byte for byte
-    (K6 and K7 make a row's floats independent of the batch), and the
-    batch ran K6 and K7."""
+    (K6 and K8 make a row's floats independent of the batch), and the
+    batch ran K6 and K8."""
     import os
 
     from tac_torch import api
@@ -1104,10 +1109,10 @@ def test_fast_corpus_on_card_equals_solo(dev, tmp_path, family):
     out = tmp_path / "out"
     job = CorpusTranscoder(cfg, str(out), batch_size=6, device=dev)
     job._encode_one = None                      # no per-clip fallback
-    before = (tk6.row_matmul.launches, tk7.segment_sums.launches)
+    before = (tk6.row_matmul.launches, tk8.psy_smr_rows.launches)
     assert job.run(paths, log=lambda *a: None)["ok"] == 6
     assert tk6.row_matmul.launches > before[0]
-    assert tk7.segment_sums.launches > before[1]
+    assert tk8.psy_smr_rows.launches > before[1]
     for p in paths:
         pac = out / (os.path.basename(p)[:-4] + ".pac")
         assert pac.read_bytes() == api.encode_array(read_wav(p)[0], cfg,
@@ -1139,3 +1144,135 @@ def test_fast_stream_on_card_equals_offline(dev, name):
         out.append(enc.push(x[i:i + n]))
         i += n
     assert b"".join(out) + enc.flush() == api.encode_array(x, cfg, device=dev)
+
+
+# K8's models: the band model at H = 1 024, the line model at H = 256 with
+# a per-row gain, the short line model at H = 64 (every line a candidate,
+# four rows a block, empty bands) and the flagship with no noise maskers
+K8_MODELS = ("band_1024", "line_256_gain", "short_64", "no_noise")
+NEG32 = float(np.float32(-1e30))
+
+
+def _k8_inputs(dev, model, m=2049, seed=0):
+    """K8's inputs on the card: (re, im, lines, consts, gain or None) of m
+    rows, re / im by K6 from noisy harmonic frames; row 0 tied peaks (more
+    equal isolated peaks than maskers where H allows, one clear winner),
+    row 1 silent."""
+    from tac_torch import blockswitch as tbs
+    from tac_torch import psy
+
+    if model in ("band_1024", "no_noise"):
+        cfg = PRESETS["stereo44-128"].replace(
+            psy_noise_maskers=model == "band_1024")
+        c = psy.make_consts(cfg, dev)
+    else:
+        bc = tbs.make_bs_consts(PRESETS["streaming-ll"], dev)
+        c = bc.cl.psy if model == "line_256_gain" else bc.psy_short
+    h = c.freqs.shape[0]
+    rng = np.random.default_rng(seed + h)
+    frames = _noisy_rows(dev, m, 2 * h, seed + h)
+    re, im = tk6.row_matmul(frames, c.fft_cos), tk6.row_matmul(frames,
+                                                               c.fft_sin)
+    ii = np.full(h, 1e-6, np.float32)
+    ii[5:h - 2:3] = 1.0
+    ii[3] = 2.0
+    re[0] = torch.as_tensor(np.sqrt(ii / c.fft_gain), dtype=torch.float32,
+                            device=dev)
+    im[0] = 0.0
+    re[1] = im[1] = 0.0
+    lines = torch.as_tensor(0.3 * rng.standard_normal((m, h)),
+                            dtype=torch.float32, device=dev)
+    lines[1] = 0.0
+    gain = (torch.as_tensor(rng.uniform(0.5, 8.0, m), dtype=torch.float32,
+                            device=dev) if model == "line_256_gain" else None)
+    return re, im, lines, c, gain
+
+
+def _k8_plain(re, im, lines, c, gain=None):
+    """The plain psy model on K8's inputs → (smr, kept maskers' indices,
+    -1 past the valid ones)."""
+    from tac_torch import psy
+
+    ii = c.fft_gain * (re * re + im * im)
+    _, _, top_idx, _, _, valid, _ = psy._tonal_maskers(ii, c)
+    return (psy.smrs_from_intensity(ii, lines, c, gain),
+            torch.where(valid, top_idx, -1).to(torch.int32))
+
+
+@pytest.mark.parametrize("m", [1, 2, 2047, 2048, 2049])
+@pytest.mark.parametrize("model", K8_MODELS)
+def test_k8_kernel_equals_plain(dev, model, m):
+    """K8 on m rows in one launch against the plain model on the card:
+    the same kept maskers (tied peaks keep the lowest indices), SMRs within
+    0.001 dB, empty bands exactly _NEG; each row the same bits as in a
+    2 049-row launch."""
+    re, im, lines, c, gain = _k8_inputs(dev, model)
+    full = tk8.psy_smr_rows(re, im, lines, c, gain, maskers=True)
+    args = [t[:m] for t in (re, im, lines)] + [c, None if gain is None
+                                               else gain[:m]]
+    before = tk8.psy_smr_rows.launches
+    got, idx = tk8.psy_smr_rows(*args, maskers=True)
+    assert tk8.psy_smr_rows.launches == before + 1
+    want, want_idx = _k8_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(got, full[0][:m]) and torch.equal(idx, full[1][:m])
+    h = c.freqs.shape[0]
+    assert idx[0].tolist() == ([3] + list(range(5, h - 2, 3))
+                               + [-1] * 64)[:idx.shape[1]]
+    if m > 1:
+        assert int((idx[1] >= 0).sum()) == 0
+    empty = c.n_lines == 0
+    assert (model == "short_64") == bool(empty.any())
+    assert bool((got[:, empty] == NEG32).all())
+    assert bool((want[:, empty] == NEG32).all())
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("model", K8_MODELS)
+def test_k8_rows_invariant(dev, model):
+    """K8's rows are the same bits under a permutation of the rows and
+    under leading axes."""
+    re, im, lines, c, gain = _k8_inputs(dev, model, seed=1)
+    got = tk8.psy_smr_rows(re, im, lines, c, gain)
+    perm = torch.randperm(re.shape[0], device=dev)
+    assert torch.equal(tk8.psy_smr_rows(
+        re[perm], im[perm], lines[perm], c,
+        None if gain is None else gain[perm]), got[perm])
+    lead = tk8.psy_smr_rows(re[:2048].reshape(512, 4, -1),
+                            im[:2048].reshape(512, 4, -1),
+                            lines[:2048].reshape(512, 4, -1), c,
+                            None if gain is None else gain[:2048].reshape(
+                                512, 4))
+    assert torch.equal(lead.reshape(2048, -1), got[:2048])
+
+
+def test_k8_refuses_bad_arguments(dev):
+    """K8 raises on a float64 row, mismatched shapes, a width other than
+    the constants' H, a per-row gain of the wrong shape, constants on the
+    CPU, rows on the CPU; a psy call on the card in parity never launches
+    it."""
+    from tac_torch import psy
+
+    re, im, lines, c, gain = _k8_inputs(dev, "line_256_gain", m=8)
+    bad = [dict(re=re.double()), dict(lines=lines[:4]),
+           dict(re=re[:, :128], im=im[:, :128], lines=lines[:, :128]),
+           dict(gain=gain[:4]), dict(gain=gain.double())]
+    for change in bad:
+        kw = dict(re=re, im=im, lines=lines, gain=gain)
+        kw.update(change)
+        with pytest.raises(ValueError, match="psy_smr_rows"):
+            tk8.psy_smr_rows(kw["re"], kw["im"], kw["lines"], c, kw["gain"])
+    cpu_c = psy.make_consts(PRESETS["streaming-ll"], "cpu")
+    with pytest.raises(ValueError, match="psy_smr_rows"):
+        tk8.psy_smr_rows(re, im, lines, cpu_c)
+    with pytest.raises(ValueError, match="psy_smr_rows"):
+        tk8.psy_smr_rows(re.cpu(), im.cpu(), lines.cpu(), cpu_c)
+    before = tk8.psy_smr_rows.launches
+    cp = psy.make_consts(PRESETS["streaming-ll"].replace(precision="parity"),
+                         dev)
+    frames = _noisy_rows(dev, 8, 512).double()
+    psy.calc_smrs(frames, frames[:, :256], cp)
+    torch.cuda.synchronize()
+    assert tk8.psy_smr_rows.launches == before

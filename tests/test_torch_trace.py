@@ -105,7 +105,7 @@ def test_off_records_nothing(runs):
     assert set(snap["launches"]) == {
         "water_fill_rows", "scatter_words_rows", "vbr_reservoir_scan",
         "huffman_decode_sets", "mdct_frames_fused", "row_matmul",
-        "segment_sums"}
+        "segment_sums", "psy_smr_rows"}
 
 
 def test_same_bytes_and_pcm_on_and_off(runs):
